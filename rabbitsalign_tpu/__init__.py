@@ -1,37 +1,34 @@
-"""rabbitsalign_tpu — a TPU-native short-read DNA alignment engine.
+"""rabbitsalign_tpu — a short-read DNA alignment engine on JAX.
 
 A from-scratch reimplementation of the capabilities of RabbitSAlign
 (a GPU-accelerated strobealign fork): syncmer/randstrobe seeding,
-strobemer hash index, NAM chaining, batched banded affine-gap
-Smith-Waterman extension, paired-end rescue/pairing and SAM/PAF output —
-with the extend phase running as a Pallas anti-diagonal DP kernel on TPU
-and the data-parallel mapping step shardable over a `jax.sharding.Mesh`.
+strobemer hash index, NAM chaining, batched affine-gap Smith-Waterman
+extension, paired-end rescue/pairing and SAM/PAF output — with the
+extend phase running on the accelerator (a CUDA kernel on NVIDIA GPUs,
+an XLA program on CPU) and the data-parallel mapping step shardable over
+a `jax.sharding.Mesh`.
 
 The host-side layer reproduces the reference semantics bit-exactly
-(`.sti` index interop, concordant SAM output); the device layer is
-designed TPU-first (static shapes, batched wavefront DP, collectives
-over ICI).
+(`.sti` index interop, concordant SAM output).
 """
 
 # 64-bit integers are required throughout (randstrobe hashes are uint64).
 # This must run before any jax.numpy array is created.
 import os as _os
+from pathlib import Path as _Path
 
 import jax
 
 jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: the wavefront kernels take ~1 min to
-# compile per (Q, T) bucket; cache them across runs.
-_cache_dir = _os.environ.get(
-    "RABBITSALIGN_TPU_CACHE", _os.path.expanduser("~/.cache/rabbitsalign_tpu/jax")
-)
-try:
-    _os.makedirs(_cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-except Exception:  # pragma: no cover - cache is best-effort
-    pass
+# Persistent compilation cache: JAX_COMPILATION_CACHE_DIR when set (jax
+# reads it itself), else one fixed place in the checkout (the path is
+# part of the cache key, so it must not move between runs); listed in
+# .gitignore.
+CHECKOUT_CACHE_DIR = str(_Path(__file__).resolve().parent.parent / ".jax_cache")
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", CHECKOUT_CACHE_DIR)
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 __version__ = "0.1.0"
 

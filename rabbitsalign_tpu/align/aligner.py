@@ -8,7 +8,7 @@ query ends claiming the end bonus when profitable.
 
 `Aligner.align_from_ends` applies the identical post-processing to an
 externally computed alignment (score/coordinates/cigar) — the integration
-point for the batched TPU Smith-Waterman kernel, mirroring the
+point for the batched device Smith-Waterman kernel, mirroring the
 reference's GPU path (/root/reference/src/aligner.cpp:13-112 align_gpu).
 """
 
@@ -143,7 +143,7 @@ class Aligner:
         edit_distance: int,
     ) -> AlignmentInfo:
         """End-bonus post-processing of an externally computed alignment
-        (batched TPU kernel result) — the analog of Aligner::align_gpu
+        (batched device kernel result) — the analog of Aligner::align_gpu
         (reference src/aligner.cpp:13-112). `query_end`/`ref_end` are
         exclusive; `eqx_cigar` covers the aligned region only (soft clips
         are added here)."""

@@ -64,7 +64,7 @@ class CommandLineOptions:
     reads_filename2: str = ""
     is_SE: bool = True
     is_interleaved: bool = False
-    # TPU-native extensions (declared here so programmatic callers get
+    # device and scale-out extensions (declared here so programmatic callers get
     # the SAME defaults the CLI sets — the getattr fallbacks in
     # pipeline/runner.py had drifted to different values)
     tpu_batch: int = 1024
@@ -82,7 +82,7 @@ class CommandLineOptions:
 def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLineOptions:
     p = argparse.ArgumentParser(
         prog="rabbitsalign-tpu",
-        description=f"rabbitsalign-tpu {version_string()} — TPU-native short-read aligner",
+        description=f"rabbitsalign-tpu {version_string()} — short-read aligner with GPU extension",
     )
     p.add_argument("--version", action="version", version=version_string())
     p.add_argument("-t", "--threads", type=int, default=None, metavar="INT",
@@ -162,11 +162,10 @@ def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLin
                    help="Maximum number of mapping sites to try [20]")
     p.add_argument("-R", dest="R", type=int, default=None,
                    help="Rescue level [2]")
-    # TPU-specific extensions
+    # device-specific extensions
     p.add_argument("--device-seed", action="store_true",
                    help="Run seeding + index lookup on the accelerator "
-                        "(vectorized randstrobes + batched find); pays "
-                        "off on high-bandwidth host<->device links")
+                        "(vectorized randstrobes + batched find)")
     p.add_argument("--shard-index", action="store_true",
                    help="Serve every index lookup from a hash-sharded "
                         "index spread across the device mesh (whole-"
@@ -181,9 +180,9 @@ def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLin
                    help="Round-robin chunk handout to worker threads so "
                         "N-thread PE output is reproducible run to run")
     p.add_argument("--tpu-batch", type=int, default=None, metavar="INT",
-                   help="TPU extension batch size cap [1024]")
+                   help="Device extension batch size cap [1024]")
     p.add_argument("--no-tpu", action="store_true",
-                   help="Disable the TPU extend path (host alignment only)")
+                   help="Disable the device extend path (host alignment only)")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="Write a jax.profiler trace of the mapping run to "
                         "DIR (view with TensorBoard / Perfetto)")

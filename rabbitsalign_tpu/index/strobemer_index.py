@@ -5,8 +5,8 @@ Data layout matches the reference StrobemerIndex
 {hash u64, position u32, packed u32 = ref_index<<8 | strobe2_offset}
 sorted by (hash, position), plus `randstrobe_start_indices` where entry x
 is the index of the first randstrobe whose top `bits` hash bits are >= x
-(with a guard entry at the end). This layout is kept because it is ideal
-for TPU lookup too: pure gathers + vectorized binary search.
+(with a guard entry at the end). This layout also serves device lookup:
+pure gathers + vectorized binary search.
 
 Binary `.sti` v2 file interop: write()/read() are byte-compatible with
 the reference (/root/reference/src/index.cpp:73-132), so indexes are
@@ -414,7 +414,7 @@ class StrobemerIndex:
                 raise InvalidIndexFile(
                     f"{filename}: truncated start-index vector")
 
-    # --- columnar mmap sidecar (TPU-native load path) -----------------
+    # --- columnar mmap sidecar (O(1) load path) ------------------------
     #
     # The .sti interleaves 16-byte records, so loading it means a full
     # sequential read + de-interleave: a 12 GB GRCh38-class index costs
@@ -644,17 +644,15 @@ def warm_index_random_access(hashes, positions, buckets,
     """Burn off the first-pass page-mapping penalty on a freshly-loaded
     big index with a short adaptive random-access burst.
 
-    Measured at the 3 Gbp config (tests/sanitize/pass0_probe.py and
-    docs/PERF.md §4b): the first ~2 s of mapping work after the 12 GB
-    index is freshly faulted runs 2-10x slow — the excess is user CPU
-    in the mapping thread itself at constant frequency with zero
-    guest-visible fault/THP/migration counters moving, i.e. the host
-    maps freshly-allocated guest frames small and random access pays
-    double page walks until the host collapses/warms them. The penalty
-    burns off with random-access WORK (a sleep does not re-arm or cure
-    it), so this burst absorbs it outside the mapping path: one
-    controlled cold-start A/B cut the first timed pass from 6.8 s to
-    1.3 s (48 k reads). Rounds self-terminate when a round stops
+    Seen at the 3 Gbp config on a virtualized host: the first seconds of
+    mapping work after the 12 GB index is freshly faulted run several
+    times slow — user CPU in the mapping thread with no guest-visible
+    fault/THP/migration counters moving, i.e. the host maps freshly
+    allocated guest frames small and random access pays double page
+    walks until the host collapses/warms them. The penalty burns off
+    with random-access WORK (a sleep does not cure it), so this burst
+    absorbs it outside the mapping path. Whether the GPU machine's host
+    shows it is not measured yet. Rounds self-terminate when a round stops
     getting faster (<20% improvement), so a warm index pays ~2 cheap
     rounds. RSB_INDEX_WARM_S overrides the budget; 0 disables."""
     import os

@@ -4,7 +4,7 @@
 persistent insert-size/statistics state); `chunk_a` runs phase A for one
 chunk of reads (seeding, NAM chaining, mapping decisions, Hamming fast
 path) and returns a `NativeChunk` carrying the pending gapped-extension
-jobs; the caller dispatches those to the TPU in fixed-shape buckets
+jobs; the caller dispatches those to the device in fixed-shape buckets
 (`fill_batch` packs the device input buffer natively) and feeds the raw
 device outputs back via `set_device_results`; `chunk_b` finishes
 pairing/rescue/mapq and SAM or PAF formatting and returns the output
@@ -25,16 +25,11 @@ import numpy as np
 from . import load_seednam
 
 # (Q, T, kernel B, dispatch groups) device buckets — must stay in sync
-# with ops/batch_extend.py. Geometry measured on v5e (chained in-jit
-# iterations, 2026-08): B=512 everywhere — the 8-diagonals-per-grid-step
-# kernel amortizes the ~4.6 us fixed step cost, and its (8, Q, B)
-# direction block leaves no VMEM for B=1024 (which the blocked kernel
-# beats anyway); the 512-query bucket fits B=512 since the kernel shed
-# its qlen/tlen planes and one scratch shift. The reference runs fixed
-# 512-pair batches (/root/reference/src/gasal2_ssw.h:22). `groups`
-# kernel invocations are fused into one jit dispatch (one transfer each
-# way) for the high-volume bucket — the host<->device link is
-# latency-bound.
+# with ops/batch_extend.py. These shapes are the planner's and the extend
+# programs' contract; a geometry derived for the H100 (SM count and
+# occupancy) is still to be measured (ROADMAP). The reference runs fixed
+# 512-pair batches (reference src/gasal2_ssw.h:22). `groups` batches
+# of the high-volume bucket ride one dispatch.
 ENGINE_BUCKETS: Tuple[Tuple[int, int, int, int], ...] = (
     (256, 512, 512, 4),
     (256, 1536, 512, 1),
@@ -44,7 +39,7 @@ ENGINE_BUCKETS: Tuple[Tuple[int, int, int, int], ...] = (
 
 def engine_buckets(r: int = 150) -> Tuple[Tuple[int, int, int, int], ...]:
     """Bucket geometry derived from the read-length profile. The
-    high-volume bucket is the TPU answer to a banded kernel: extend
+    high-volume bucket stands in for a banded kernel: extend
     windows are the NAM projection +-50 bp (/root/reference/src/
     aln.cpp:468-473), so tlen <= qlen + ~105 by construction and a tight
     (Q0, T0) rectangle IS the band — for r=150 the (152, 256) bucket has
@@ -52,26 +47,14 @@ def engine_buckets(r: int = 150) -> Tuple[Tuple[int, int, int, int], ...]:
     zero exactness risk. A true diagonal band cannot beat this: the
     window discipline makes the per-job offset envelope (~tlen - qlen
     ~ 105 wide plus safety margin) nearly as wide as the tight rectangle
-    itself (docs/PERF.md round-3 notes). Jobs that exceed the tight
+    itself. Jobs that exceed the tight
     bucket (indel drift, long reads in a short-profile run, rescue
     windows) fall through to the legacy buckets."""
     q0 = int(min(256, max(64, ((int(r) + 2 + 7) // 8) * 8)))
     t0 = int(min(512, ((q0 + 104 + 7) // 8) * 8))
-    # B=1024 measured 1.47x better per pair than B=512 on (152, 256)
-    # (the per-diagonal cost is nearly plane-size-independent, so wider
-    # batches amortize it); validated to fit VMEM for q0 <= 160 — the
-    # single-diagonal grid steps kick in past Q*B = 256*512
     bcap = 1024 if q0 <= 160 else 512
-    # dispatch-group fusing: `groups` kernel invocations ride ONE jit
-    # dispatch (one transfer each way); each dispatch costs fixed
-    # jax-client CPU that competes with phase A on the mapping core
-    # (docs/PERF.md §3), so the right count depends on the host:link
-    # balance. Round-5 A/B on this box (SE-1Mbp end-to-end, interleaved
-    # best-of-6): groups=4 was a wash vs 2 (152.2k vs 151.9k r/s — the
-    # halved dispatch count cancels against the doubled serial device
-    # leg per call), so the round-3 default of 2 stands;
-    # RSB_TIGHT_GROUPS overrides for deployments with a different
-    # balance.
+    # dispatch-group fusing: `groups` batches ride ONE dispatch (one
+    # transfer each way); RSB_TIGHT_GROUPS overrides the default of 2
     import os
 
     try:
@@ -247,7 +230,7 @@ class NativeEngine:
         # high-volume bucket; see engine_buckets)
         self.buckets = (buckets if buckets is not None
                         else engine_buckets(getattr(map_param, "r", 150)))
-        # job-shape telemetry (docs/PERF.md round-4 bucket analysis):
+        # job-shape telemetry (the data behind the bucket geometry):
         # per-bucket job counts (last slot = no bucket fits -> host),
         # plus 32-wide (qlen, tlen) histograms of every planned job
         self._shape_bucket = np.zeros(len(self.buckets) + 1, np.int64)
@@ -409,9 +392,9 @@ class NativeEngine:
 
     # --- device round trip ----------------------------------------------
 
-    # batches smaller than this resolve on the host instead: one device
-    # round trip costs more than ~50 scalar SSW alignments on this class
-    # of link (the reference pays the same trade with its CPU fallback)
+    # batches smaller than this resolve on the host instead (the
+    # reference pays the same trade with its CPU fallback); the value
+    # predates the GPU and is still to be re-derived on it (ROADMAP)
     MIN_DEVICE_JOBS = 48
 
     def plan_batches(self, chunk: NativeChunk, batch_size: int):
@@ -553,8 +536,7 @@ class NativeEngine:
         """Extend-job shape telemetry accumulated by plan_batches:
         per-bucket job counts (last = no bucket fits), sub-batch
         leftovers resolved on host, and 32bp-binned qlen/tlen
-        histograms — the data behind the bucket-geometry decisions
-        (docs/PERF.md round 4)."""
+        histograms — the data behind the bucket-geometry decisions."""
         return {
             "buckets": [(int(qc), int(tc), int(n)) for (qc, tc, _, _), n
                         in zip(self.buckets, self._shape_bucket)],

@@ -1,7 +1,7 @@
 // Native host hot path: syncmer/randstrobe seeding, strobemer index
 // lookup and NAM chaining for a whole chunk of reads.
 //
-// This is the TPU framework's equivalent of the reference's CPU hot loops
+// This is the equivalent of the reference's CPU hot loops
 // (randstrobes_query -> find_nams / find_nams_rescue); a fresh C++
 // implementation of the same semantics as rabbitsalign_tpu's Python layer
 // (seed/syncmers.py, seed/randstrobes.py, chain/nams.py), which is itself

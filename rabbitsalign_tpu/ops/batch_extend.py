@@ -1,17 +1,18 @@
-"""BatchAligner: collect gapped-extension jobs, run them on the TPU in
+"""BatchAligner: collect gapped-extension jobs, run them on the device in
 fixed-shape buckets, return SSW-compatible AlignmentInfo results.
 
-The TPU-native replacement for the reference's GPU bridge
+The Python-layer counterpart of the reference's GPU bridge
 (/root/reference/src/gasal2_ssw.cpp solve_ssw_on_gpu + Aligner::align_gpu
 post-processing): jobs are padded into (Q, T) buckets, dispatched through
-the fused forward+traceback pallas pipeline, and finished on the host
+the platform's extend program (ops/extend_device.extend_program), and
+finished on the host
 with the same '='/'X' cigars, soft clips and end-bonus extension as the
 host Aligner. Any job that does not fit a bucket, scores zero, or fails
 validation is redone with the host aligner — the analog of the
 reference's `gasal_fail` CPU fallback (/root/reference/src/pc.cpp:446-478).
 
 Dispatch is asynchronous: all buckets are launched before any result is
-fetched, letting device compute overlap the (high-latency) host link.
+fetched, letting device compute overlap host work.
 """
 
 from __future__ import annotations
@@ -24,14 +25,17 @@ import numpy as np
 from ..align.aligner import Aligner, AlignmentParameters
 from ..align.hamming import AlignmentInfo
 from ..utils.dna import encode
-from .extend_device import extend_batch_packed, pack_input, unpack_output
+from .extend_device import (
+    extend_batch_packed,
+    extend_program,
+    ops_to_cigars,
+    pack_input,
+    unpack_output,
+)
 from .sw_jax import SwParams
 
 # (Q, T, max batch) buckets; a job uses the smallest bucket that fits —
-# kept in sync with native/engine.py ENGINE_BUCKETS (geometry measured on
-# v5e, see that table's comment; the round-2 kernel dropped its qlen/tlen
-# planes and one scratch shift, which is what fits B=512 at Q=512).
-# extend_seed windows are read+|diff|+100; rescue windows reach mu+5*sigma
+# kept in sync with native/engine.py ENGINE_BUCKETS. extend_seed windows are read+|diff|+100; rescue windows reach mu+5*sigma
 # + read/2 (~1100 for the initial prior); the reference caps targets at
 # 2000 (src/gasal2_ssw.h:24-25, src/aligner.cpp:118).
 DEFAULT_BUCKETS: Tuple[Tuple[int, int, int], ...] = (
@@ -66,6 +70,9 @@ class BatchAligner:
         self.jobs: List[_Job] = []
         self.n_fallbacks = 0
         self.n_device_jobs = 0
+        import jax
+
+        self.program = extend_program(jax.devices()[0].platform)
 
     def submit(self, query: bytes, ref: bytes) -> int:
         """Queue a gapped alignment; returns its job index."""
@@ -126,7 +133,8 @@ class BatchAligner:
                     qlen[col] = qc.shape[0]
                     tlen[col] = tc.shape[0]
                 buf = pack_input(q_t, t_t, qlen, tlen)
-                out_dev = extend_batch_packed(buf, Q, T, self.sw_params)  # async
+                out_dev = extend_batch_packed(buf, Q, T, self.sw_params,
+                                              self.program)  # async
                 pending.append((bucket, chunk, out_dev))
                 self.n_device_jobs += len(chunk)
 
@@ -139,8 +147,6 @@ class BatchAligner:
             out = np.asarray(out_dev)
             (op_runs, len_runs, n_runs, score, t_end, q_end, t_begin,
              q_begin, edits) = unpack_output(out)
-            from .extend_device import ops_to_cigars
-
             cigars = ops_to_cigars(op_runs, len_runs, n_runs, score)
             for col, ji in enumerate(chunk):
                 job = jobs[ji]
@@ -205,7 +211,7 @@ class BatchAligner:
 class HostBatchAligner:
     """Same interface as BatchAligner, but jobs run through the host
     Aligner at flush time. Used for --no-tpu mode and CPU tests; produces
-    byte-identical output to the TPU path (both reduce to SSW semantics)."""
+    byte-identical output to the device path (both reduce to SSW semantics)."""
 
     def __init__(self, parameters: AlignmentParameters):
         self.parameters = parameters

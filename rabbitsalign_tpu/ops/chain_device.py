@@ -2,7 +2,7 @@
 
 SURVEY §7 lists the reference's irregular NAM construction
 (`merge_hits_into_nams`, /root/reference/src/nam.cpp:370-536) as the
-hardest part to express on a TPU: a sweep over hits that mutates an
+hardest part to express on an accelerator: a sweep over hits that mutates an
 insertion-ordered list of "open" NAMs — extend the first open NAM whose
 (query, ref) windows admit the hit, else open a new one, and flush open
 NAMs that fell behind the sweep line. This module is that algorithm as
@@ -163,7 +163,7 @@ def merge_hits_device(hits, seg_start, valid, k: int, cap: int):
 def merge_stream_device_padded(stream, seg, k: int, cap: int):
     """Run the jitted sweep merge over an ordered hit stream padded to a
     power-of-two length: every distinct raw length would otherwise be a
-    fresh trace + XLA compile (20-40 s per shape on TPU). Shared by the
+    fresh trace + XLA compile. Shared by the
     standalone device chain and the composed front end so the padding
     discipline cannot drift. Returns (rows, mask, H, Hp, overflow) with
     rows/mask as numpy; the end-of-stream flush row is at index Hp."""

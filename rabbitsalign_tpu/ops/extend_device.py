@@ -1,18 +1,28 @@
-"""Fused device-side batched extension: wavefront SW forward + on-device
-traceback, one jit, compact host outputs.
+"""Device extension: the choice of extend program per platform, the
+jitted wrappers every caller dispatches through, and the platform-neutral
+host helpers around them.
 
-The 50 MB direction tensor never leaves the device; the host receives
-only a run-length-encoded cigar (RLE_M fixed run slots per pair) plus
-score/coords/edits as u16 rows. This replaces the reference's
+An extend program maps (Q, B)/(T, B) u8 codes and (B,) lengths to the
+packed (OUT_ROWS, B) u8 buffer below: forward Smith-Waterman, traceback
+from the best cell and a run-length-encoded cigar, all on the device, so
+the direction tensor never leaves it. This replaces the reference's
 GPU flow of downloading packed traceback matrices + cigars
 (/root/reference/GASAL2/src/gasal_align.cu:266-304,
 /root/reference/src/gasal2_ssw.cpp:179-249).
+
+Packed output layout (2*RLE_M + 14, B): 2-byte runs — rows [0,M) length
+lo byte, rows [M,2M) (op << 5) | (length >> 8) (op 3 bits, length 13
+bits; lengths cap at T <= 2048 so 13 bits always fit) — then score,
+t_end, q_end, t_begin, q_begin, edits as u16 (lo,hi) row pairs, then
+n_runs u16 (0xFFFF = more than M runs -> host re-align). Runs sit at
+slots [M - n_runs, M) in forward cigar order (the walker discovers them
+back-to-front and fills slots descending from M-1).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -20,54 +30,15 @@ import numpy as np
 
 from ..align.cigar import CIGAR_DEL, CIGAR_EQ, CIGAR_INS, CIGAR_X, Cigar
 from .sw_jax import SwParams
-from .sw_pallas import _sw_forward_pallas_core
-from .tb_pallas import (
-    OP_D,
-    OP_EQ,
-    OP_I,
-    OP_NONE,
-    OP_X,
-    RLE_M,
-    _sw_traceback_pallas_core,
-)
 
+RLE_M = 32  # cigar run slots per pair; MUST equal `M` in native/engine.cpp
+# chunk_set_device_results and kRleM in ops/cuda/sw_extend.cuh
 
-def extend_batch_device(q_t, t_t, qlen, tlen, params: SwParams):
-    """q_t (Q, B) uint8, t_t (T, B) uint8, qlen/tlen (B,) int32.
-    Returns (score (B,), t_end, q_end, runs_op (RLE_M, B) i32,
-    runs_len (RLE_M, B) i32, meta (8, B) i32)."""
-    with jax.enable_x64(False):
-        return _extend_batch_device(q_t, t_t, qlen, tlen, params)
-
-
-@functools.partial(jax.jit, static_argnames=("params",))
-def _extend_batch_device(q_t, t_t, qlen, tlen, params: SwParams):
-    score, t_end, q_end, dirs, q_i32, t_i32 = _sw_forward_pallas_core(
-        q_t, t_t, qlen, tlen, params
-    )
-    runs_op, runs_len, meta = _sw_traceback_pallas_core(dirs, score, t_end, q_end)
-    return score, t_end, q_end, runs_op, runs_len, meta
-
-
-# --- packed single-buffer interface -------------------------------------
-#
-# The host<->device link has ~25 ms per-transfer latency AND the host has
-# one core, so the batch aligner ships ONE uint8 array each way and keeps
-# it small — the cigar is run-length encoded ON DEVICE (inside the
-# traceback walk, tb_pallas.py) into RLE_M fixed run slots per pair
-# (~10-20x fewer bytes than raw ops; raw op-stream download dominated the
-# single-core grpc serialization cost):
-#   input  (Q + T + 4, B):    q codes / t codes / qlen lo,hi / tlen lo,hi
-#   output (2*RLE_M + 14, B): 2-byte runs — rows [0,M) length lo byte,
-#                             rows [M,2M) (op << 5) | (length >> 8)
-#                             (op 3 bits, length 13 bits; lengths cap at
-#                             T <= 2048 so 13 bits always fit) — then
-#                             score, t_end, q_end, t_begin, q_begin,
-#                             edits as u16 (lo,hi) row pairs, then
-#                             n_runs u16 (0xFFFF = >M runs -> host
-#                             fallback).
-# Runs sit at slots [M - n_runs, M) in forward cigar order (the walker
-# discovers them back-to-front and fills slots descending from M-1).
+# run op codes (0 = no run)
+OP_EQ = 1
+OP_X = 2
+OP_I = 3
+OP_D = 4
 
 OUT_ROWS = 2 * RLE_M + 14
 
@@ -126,15 +97,10 @@ def unpack_output(out: np.ndarray, D: int = 0):
             q_begin, edits)
 
 
-def extend_batch_packed(buf, Q: int, T: int, params: SwParams):
-    with jax.enable_x64(False):
-        return _extend_batch_packed(buf, Q, T, params)
-
-
 def _pack_rle_output(runs_op, runs_len, score, t_end, q_end, meta):
-    """Pack the walker-RLE'd traceback (tb_pallas) into the u8 transfer
-    buffer. Runs stay at their descending slots: rows [M - n_runs, M)
-    hold the forward-order cigar."""
+    """Pack the walker-RLE'd traceback (extend_portable.traceback_rle)
+    into the u8 transfer buffer. Runs stay at their descending slots:
+    rows [M - n_runs, M) hold the forward-order cigar."""
 
     def u16rows(v):
         v = v.astype(jnp.int32)
@@ -158,11 +124,6 @@ def _pack_rle_output(runs_op, runs_len, score, t_end, q_end, meta):
     )
 
 
-@functools.partial(jax.jit, static_argnames=("Q", "T", "params"))
-def _extend_batch_packed(buf, Q: int, T: int, params: SwParams):
-    return _extend_batch_packed_body(buf, Q, T, params)
-
-
 def ops_to_cigars(
     op_runs: np.ndarray,   # (M, B) uint8 run op codes
     len_runs: np.ndarray,  # (M, B) int32 run lengths
@@ -170,8 +131,7 @@ def ops_to_cigars(
     score: np.ndarray,
 ) -> List[Optional[Tuple[Cigar, int]]]:
     """Decode the device-RLE runs into =/X/I/D cigars. Runs live at slots
-    [M - n_runs, M) in forward cigar order (tb_pallas slot layout).
-    Returns per pair (cigar, n_ops_consumed) or None for score<=0, empty
+    [M - n_runs, M) in forward cigar order. Returns per pair (cigar, n_ops_consumed) or None for score<=0, empty
     streams, and >M-run overflows (caller re-aligns those on the host)."""
     _MAP = {OP_EQ: CIGAR_EQ, OP_X: CIGAR_X, OP_I: CIGAR_INS, OP_D: CIGAR_DEL}
     B = op_runs.shape[1]
@@ -199,78 +159,12 @@ def ops_to_cigars(
     return out
 
 
-def extend_batch_packed_grouped(buf, Q: int, T: int, params: SwParams, sub: int):
-    """Like extend_batch_packed but for a buffer whose B columns are a
-    multiple of `sub`: runs the kernel per `sub`-column group inside ONE
-    jit dispatch (one transfer each way). Cuts host<->device round trips
-    when the link is latency-bound; per-kernel VMEM stays at the
-    `sub`-sized footprint."""
-    with jax.enable_x64(False):
-        return _extend_batch_packed_grouped(buf, Q, T, params, sub)
-
-
-@functools.partial(jax.jit, static_argnames=("Q", "T", "params", "sub"))
-def _extend_batch_packed_grouped(buf, Q: int, T: int, params: SwParams, sub: int):
-    B = buf.shape[1]
-    if B == sub:
-        return _extend_batch_packed_body(buf, Q, T, params)
-    outs = [
-        _extend_batch_packed_body(buf[:, i : i + sub], Q, T, params)
-        for i in range(0, B, sub)
-    ]
-    return jnp.concatenate(outs, axis=1)
-
-
-# --- device-resident-reference variant -----------------------------------
-#
-# The reference genome (nt4 codes, uint8) lives in HBM for the whole run
-# (GRCh38 = 3.1 GB, well under one chip's capacity); the host ships ONLY
-# query codes + lengths + a u32 global target offset per pair (Q + 8 rows
-# vs Q + T + 4), and the kernel gathers each pair's forward target window
-# from the resident copy. Cuts per-batch upload ~4-7x on top of the RLE
-# download cut; this is the production transfer layout.
-
-def extend_batch_packed_resident(buf, ref_codes, Q: int, T: int,
-                                 params: SwParams, sub: int):
-    with jax.enable_x64(False):
-        return _extend_batch_packed_resident(buf, ref_codes, Q, T, params, sub)
-
-
-@functools.partial(jax.jit, static_argnames=("Q", "T", "params", "sub"))
-def _extend_batch_packed_resident(buf, ref_codes, Q: int, T: int,
-                                  params: SwParams, sub: int):
-    B = buf.shape[1]
-    outs = [
-        _extend_resident_body(buf[:, i : i + sub], ref_codes, Q, T, params)
-        for i in range(0, B, sub)
-    ]
-    return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=1)
-
-
-def extend_batch_packed_resident_q2(buf, ref_codes, Q: int, T: int,
-                                    params: SwParams, sub: int):
-    with jax.enable_x64(False):
-        return _extend_batch_packed_resident_q2(buf, ref_codes, Q, T, params,
-                                                sub)
-
-
-@functools.partial(jax.jit, static_argnames=("Q", "T", "params", "sub"))
-def _extend_batch_packed_resident_q2(buf, ref_codes, Q: int, T: int,
-                                     params: SwParams, sub: int):
-    B = buf.shape[1]
-    outs = [
-        _extend_resident_q2_body(buf[:, i : i + sub], ref_codes, Q, T, params)
-        for i in range(0, B, sub)
-    ]
-    return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=1)
-
-
 def unpack_q2(buf, ref_codes, Q: int, T: int):
     """Decode the q2 upload layout into (q_t (Q,B) u8, t_t (T,B) u8,
     qlen (B,), tlen (B,)): 2-bit-packed queries (chunk_fill_batch_q2) —
     4 codes/byte + N-mask bitmap + u16 lengths + u32 target offset —
     with targets gathered from the device-resident paged reference.
-    Shared by the Pallas and portable extend paths."""
+    Shared by every extend program."""
     B = buf.shape[1]
     Qp = (Q + 3) // 4
     Qm = (Q + 7) // 8
@@ -301,52 +195,55 @@ def unpack_q2(buf, ref_codes, Q: int, T: int):
     return q_t, t_t, qlen, tlen
 
 
-def _extend_resident_q2_body(buf, ref_codes, Q: int, T: int,
-                             params: SwParams):
+ExtendBody = Callable  # (q_t, t_t, qlen, tlen, params, sub) -> (OUT_ROWS, B) u8
+
+
+def extend_program(platform: str) -> ExtendBody:
+    """The extend program for a JAX platform: the XLA twin
+    (extend_portable) on ``cpu``, the CUDA kernel (extend_cuda, built and
+    registered here) on ``gpu``. Any other platform is an error; nothing
+    falls back."""
+    if platform == "cpu":
+        from .extend_portable import extend_body
+
+        return extend_body
+    if platform == "gpu":
+        from . import extend_cuda
+
+        extend_cuda.register()  # builds the library on first use
+        return extend_cuda.extend_body
+    raise RuntimeError(
+        f"no extend program for platform {platform!r} (cpu: XLA twin, "
+        "gpu: CUDA kernel)")
+
+
+def extend_batch_packed_resident_q2(buf, ref_codes, Q: int, T: int,
+                                    params: SwParams, sub: int,
+                                    body: ExtendBody):
+    """Production layout: 2-bit queries + target offsets into the
+    device-resident reference pages (unpack_q2) -> packed output."""
+    with jax.enable_x64(False):
+        return _extend_resident_q2(buf, ref_codes, Q, T, params, sub, body)
+
+
+@functools.partial(jax.jit,
+                   static_argnames=("Q", "T", "params", "sub", "body"))
+def _extend_resident_q2(buf, ref_codes, Q: int, T: int, params: SwParams,
+                        sub: int, body: ExtendBody):
     q_t, t_t, qlen, tlen = unpack_q2(buf, ref_codes, Q, T)
-    score, t_end, q_end, dirs, q_i32, t_i32 = _sw_forward_pallas_core(
-        q_t, t_t, qlen, tlen, params
-    )
-    runs_op, runs_len, meta = _sw_traceback_pallas_core(dirs, score, t_end, q_end)
-    return _pack_rle_output(runs_op, runs_len, score, t_end, q_end, meta)
+    return body(q_t, t_t, qlen, tlen, params, sub)
 
 
-def _extend_resident_body(buf, ref_codes, Q: int, T: int, params: SwParams):
-    B = buf.shape[1]
-    qlen = buf[Q].astype(jnp.int32) | (buf[Q + 1].astype(jnp.int32) << 8)
-    tlen = buf[Q + 2].astype(jnp.int32) | (buf[Q + 3].astype(jnp.int32) << 8)
-    # u32 offsets cover genomes up to 4.29 Gbp (the reference itself caps
-    # positions at u32, randstrobes.hpp:23). XLA gather indices are int32
-    # under the x64-disabled jit, so a flat >2^31-element gather would
-    # wrap; ref_codes therefore arrives as PAGES (P, PAGE + OVERLAP) from
-    # pack_ref_pages (1 GiB pages overlapped by the max target length) and
-    # both the page id and in-page offset stay comfortably int32
-    tstart = (
-        buf[Q + 4].astype(jnp.uint32)
-        | (buf[Q + 5].astype(jnp.uint32) << 8)
-        | (buf[Q + 6].astype(jnp.uint32) << 16)
-        | (buf[Q + 7].astype(jnp.uint32) << 24)
-    )
-    page = (tstart >> jnp.uint32(REF_PAGE_BITS)).astype(jnp.int32)
-    off = (tstart & jnp.uint32(REF_PAGE_SIZE - 1)).astype(jnp.int32)
-    page_w = ref_codes.shape[1]
-    rows = jnp.arange(T, dtype=jnp.int32)[:, None]
-    ridx = jnp.minimum(off[None, :] + rows, page_w - 1)
-    t_t = jnp.where(rows < tlen[None, :],
-                    ref_codes[page[None, :].repeat(T, axis=0), ridx],
-                    jnp.uint8(4))
-    score, t_end, q_end, dirs, q_i32, t_i32 = _sw_forward_pallas_core(
-        buf[:Q], t_t, qlen, tlen, params
-    )
-    runs_op, runs_len, meta = _sw_traceback_pallas_core(dirs, score, t_end, q_end)
-    return _pack_rle_output(runs_op, runs_len, score, t_end, q_end, meta)
+def extend_batch_packed(buf, Q: int, T: int, params: SwParams,
+                        body: ExtendBody):
+    """Self-contained layout (pack_input: query and target codes plus
+    lengths) -> packed output."""
+    with jax.enable_x64(False):
+        return _extend_packed(buf, Q, T, params, body)
 
 
-def _extend_batch_packed_body(buf, Q: int, T: int, params: SwParams):
+@functools.partial(jax.jit, static_argnames=("Q", "T", "params", "body"))
+def _extend_packed(buf, Q: int, T: int, params: SwParams, body: ExtendBody):
     qlen = buf[Q + T].astype(jnp.int32) | (buf[Q + T + 1].astype(jnp.int32) << 8)
     tlen = buf[Q + T + 2].astype(jnp.int32) | (buf[Q + T + 3].astype(jnp.int32) << 8)
-    score, t_end, q_end, dirs, q_i32, t_i32 = _sw_forward_pallas_core(
-        buf[:Q], buf[Q : Q + T], qlen, tlen, params
-    )
-    runs_op, runs_len, meta = _sw_traceback_pallas_core(dirs, score, t_end, q_end)
-    return _pack_rle_output(runs_op, runs_len, score, t_end, q_end, meta)
+    return body(buf[:Q], buf[Q : Q + T], qlen, tlen, params, buf.shape[1])

@@ -1,33 +1,21 @@
-"""Portable (pure-XLA) twin of the fused Pallas extend pipeline.
+"""The XLA twin of the extend program: forward DP (sw_jax), traceback
+with in-walk run-length encoding, and the packed (2*RLE_M + 14, B)
+output, built from `lax.scan` and vector ops only.
 
-Produces byte-identical packed outputs to ops/extend_device.py —
-same forward recurrence (sw_jax), same traceback walk with in-walk
-run-length encoding, same (2*RLE_M + 14, B) transfer buffer — but built
-from `lax.scan` + vector ops only, so it runs on ANY jax backend:
-
-* CPU test meshes (the Pallas kernels need a real TPU), which is what
-  lets `NativePipeline(use_device=True)` round-robin over the 8-device
-  virtual mesh in the regular test suite and in `dryrun_multichip`;
-* as a cross-check of the Pallas traceback/RLE semantics on CPU.
-
-Production TPU runs use the Pallas path (ops/sw_pallas.py,
-ops/tb_pallas.py); this module is the correctness-first fallback, the
-portable-kernel pipeline mode, and the multi-chip shard_map building
-block (parallel/sharding.py).
+It is the extend program on CPU (tests, CPU-only users, the virtual
+multi-device meshes of the test suite) and the yardstick the CUDA kernel
+(ops/extend_cuda.py) is checked against byte for byte.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 
-from .extend_device import _pack_rle_output, unpack_q2
+from .extend_device import OP_D, OP_EQ, OP_I, OP_X, RLE_M, _pack_rle_output
 from .sw_jax import SwParams, sw_forward
-from .tb_pallas import OP_D, OP_EQ, OP_I, OP_X, RLE_M
 
-# walker layers (same encoding as tb_pallas)
+# walker layers
 _H = 0
 _E = 1
 _F = 2
@@ -36,11 +24,10 @@ _DONE = 3
 
 def traceback_rle(dirs, score, t_end, q_end):
     """Walk the (D, B, Q) direction planes from each pair's alignment end
-    and run-length encode the cigar on the fly — the lax.scan twin of
-    tb_pallas._kernel. Returns (runs_op (RLE_M, B) i32, runs_len
-    (RLE_M, B) i32, meta (8, B) i32 rows [t_begin, q_begin, edits,
-    n_runs, 0..]) with runs at descending slots from RLE_M-1 (ascending
-    rows = forward cigar order)."""
+    and run-length encode the cigar on the fly. Returns (runs_op
+    (RLE_M, B) i32, runs_len (RLE_M, B) i32, meta (8, B) i32 rows
+    [t_begin, q_begin, edits, n_runs, 0..]) with runs at descending slots
+    from RLE_M-1 (ascending rows = forward cigar order)."""
     D, B, Q = dirs.shape
     zero = jnp.int32(0)
     one = jnp.int32(1)
@@ -152,8 +139,7 @@ def traceback_rle(dirs, score, t_end, q_end):
 
 
 def _extend_portable_body(q_t, t_t, qlen, tlen, params: SwParams):
-    """(Q, B)/(T, B) u8 codes -> packed (2*RLE_M + 14, B) u8 output,
-    identical to the Pallas fused path."""
+    """(Q, B)/(T, B) u8 codes -> packed (2*RLE_M + 14, B) u8 output."""
     q_bq = q_t.T  # sw_forward wants (B, Q)
     t_bt = t_t.T
     score, t_end, q_end, dirs = sw_forward(
@@ -164,34 +150,16 @@ def _extend_portable_body(q_t, t_t, qlen, tlen, params: SwParams):
     return _pack_rle_output(runs_op, runs_len, score, t_end, q_end, meta)
 
 
-def extend_batch_packed_resident_q2_portable(buf, ref_codes, Q: int, T: int,
-                                             params: SwParams, sub: int):
-    """Drop-in twin of extend_device.extend_batch_packed_resident_q2 for
-    backends without Pallas support (CPU meshes)."""
-    with jax.enable_x64(False):
-        return _extend_q2_portable(buf, ref_codes, Q, T, params, sub)
-
-
-@functools.partial(jax.jit, static_argnames=("Q", "T", "params", "sub"))
-def _extend_q2_portable(buf, ref_codes, Q: int, T: int, params: SwParams,
-                        sub: int):
-    B = buf.shape[1]
-    outs = []
-    for i in range(0, B, sub):
-        q_t, t_t, qlen, tlen = unpack_q2(buf[:, i : i + sub], ref_codes, Q, T)
-        outs.append(_extend_portable_body(q_t, t_t, qlen, tlen, params))
+def extend_body(q_t, t_t, qlen, tlen, params: SwParams, sub: int):
+    """The extend program body (see extend_device.extend_program), run
+    per `sub`-column group to bound the (D, sub, Q) direction planes."""
+    B = q_t.shape[1]
+    outs = [
+        _extend_portable_body(q_t[:, i : i + sub], t_t[:, i : i + sub],
+                              qlen[i : i + sub], tlen[i : i + sub], params)
+        for i in range(0, B, sub)
+    ]
     return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=1)
 
 
-def extend_batch_packed_portable(buf, Q: int, T: int, params: SwParams):
-    """Drop-in twin of extend_device.extend_batch_packed (self-contained
-    q+t upload layout) for backends without Pallas support."""
-    with jax.enable_x64(False):
-        return _extend_packed_portable(buf, Q, T, params)
-
-
-@functools.partial(jax.jit, static_argnames=("Q", "T", "params"))
-def _extend_packed_portable(buf, Q: int, T: int, params: SwParams):
-    qlen = buf[Q + T].astype(jnp.int32) | (buf[Q + T + 1].astype(jnp.int32) << 8)
-    tlen = buf[Q + T + 2].astype(jnp.int32) | (buf[Q + T + 3].astype(jnp.int32) << 8)
-    return _extend_portable_body(buf[:Q], buf[Q : Q + T], qlen, tlen, params)
+extend_body.label = "XLA twin (lax.scan)"

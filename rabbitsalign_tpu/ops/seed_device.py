@@ -1,7 +1,7 @@
 """On-device batched seeding: canonical closed syncmers + randstrobe
 linking + index lookup as jax ops over padded read batches.
 
-This is the TPU-first seeding design from SURVEY.md §7.2: the reference's
+This is the device seeding design from SURVEY.md §7.2: the reference's
 per-base SyncmerIterator automaton (/root/reference/src/randstrobes.cpp:
 57-118) becomes a `lax.scan` over base positions with every read in the
 batch advancing in lock-step on the lanes; randstrobe linking
@@ -11,11 +11,9 @@ check against the device-resident hash array.
 
 Bit-exact against the host implementations (seed/syncmers.py,
 seed/randstrobes.py, index/strobemer_index.py) — see
-tests/test_seed_device.py. The production pipeline currently seeds on
-the host (the C++ engine): on this development setup the host<->device
-link latency dominates any seeding offload, but on production hardware
-(PCIe/ICI-attached chips) this module moves the second-hottest CPU loop
-onto the TPU.
+tests/test_seed_device.py. The production pipeline seeds on the host
+(the C++ engine) by default; `--device-seed` moves the second-hottest CPU
+loop onto the accelerator. Which wins on the GPU is not measured yet.
 
 All hashes are uint64: the package enables jax x64 at import.
 """
@@ -266,9 +264,9 @@ def index_find_device_split(hi, lo, bucket_starts, bits: int, khi, klo,
                             iters: int = 18):
     """Batched StrobemerIndex.find in PURE 32-bit arithmetic.
 
-    The u64 `jnp.searchsorted` in `index_find_device` is emulated on TPU
-    (every 64-bit compare lowers to multi-op 32-bit sequences and the
-    sort-based lowering walks the whole array); this variant stores the
+    The u64 `jnp.searchsorted` in `index_find_device` is emulated on
+    backends without native 64-bit compares (every compare lowers to
+    multi-op 32-bit sequences); this variant stores the
     sorted hashes as (hi32, lo32) planes and runs a bucket-bounded
     per-query binary search with unsigned-32 lexicographic compares —
     int32 gathers and compares only. `iters` must cover the largest
@@ -314,9 +312,9 @@ def index_find_device_gary(hi, lo, bucket_starts, bits: int, khi, klo,
                            iters: int, G: int = 16):
     """Batched StrobemerIndex.find via G-ary search + one slice gather.
 
-    The binary search in `index_find_device_split` is GATHER-LATENCY
-    bound: ~20 serial data-dependent HBM accesses at ~25-30 ns each
-    (docs/PERF.md §1c). This variant cuts the serial depth to
+    The binary search in `index_find_device_split` is gather-latency
+    bound: ~20 serial data-dependent device-memory accesses. This variant
+    cuts the serial depth to
     ceil(log_G(max_bucket_run)) + 1:
 
     * each narrowing step probes G-1 equally-strided positions in ONE
@@ -416,9 +414,8 @@ def gary_iters(bucket_starts, G: int = 16) -> int:
 # The scan automaton above is the bit-exact reference implementation; this
 # variant restructures the same computation into pure data-parallel ops
 # (unrolled polynomial s-mer/k-mer evaluation, window min + argmin,
-# searchsorted-free compaction, masked window linking) and runs ~3 orders
-# of magnitude faster on a TPU (sub-0.1 ms for 4000x150 vs ~600 ms for the
-# scan). One semantic caveat: the reference's min-queue breaks ties
+# searchsorted-free compaction, masked window linking), which accelerators
+# run far faster than the sequential scan. One semantic caveat: the reference's min-queue breaks ties
 # between EQUAL minimum s-mer hashes path-dependently (leftmost on first
 # fill, rightmost after a slide-out eviction, keep-old on ties), which a
 # per-window closed form cannot reproduce. Reads containing any window
@@ -486,8 +483,8 @@ def randstrobes_query_vec(codes, lengths, k: int, s: int, t: int,
         jnp.sum(emit.astype(jnp.int32), axis=1) > M
     )
 
-    # compact emissions into M slots (broadcast argmax: vmapped
-    # searchsorted lowers to slow per-element loops on TPU)
+    # compact emissions into M slots (broadcast argmax instead of a
+    # vmapped searchsorted, which can lower to per-element loops)
     ce = jnp.cumsum(emit.astype(jnp.int32), axis=1)
     n_sync = jnp.where(lengths >= w_max, ce[:, -1], 0)
     targets = jnp.arange(1, M + 1, dtype=jnp.int32)
@@ -563,9 +560,8 @@ def seed_and_find(codes, lengths, index_hashes, bucket_starts,
     n_fwd (B,), n_rc (B,), tie (B,) bool, pos (B, 2M) i64). Valid slots
     are [0, n_fwd) and [M, M + n_rc); `tie` rows need the host path.
 
-    This is the production seeding offload for deployments whose
-    host<->device link can carry the results back cheaply (PCIe/ICI);
-    on a thin link host seeding wins — see docs/PERF.md."""
+    This is the seeding offload behind `--device-seed`; whether it beats
+    host seeding on the GPU is not measured yet (ROADMAP)."""
     h, st, en, nf, nr, tie = randstrobes_query_vec(
         codes, lengths, k, s, t, w_min, w_max, q, max_dist, M
     )

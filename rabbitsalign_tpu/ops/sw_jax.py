@@ -4,10 +4,10 @@ This is the reference/device-portable implementation of the wavefront DP
 that replaces the reference's GASAL2 CUDA kernels
 (/root/reference/GASAL2/src/kernels/local_kernel_template.h) and SSW
 (/root/reference/ext/ssw/ssw.c): one `lax.scan` step per anti-diagonal,
-each step a handful of vector ops over the (batch, query) plane — the
-layout the TPU VPU wants. The Pallas kernel (sw_pallas.py) implements the
-same recurrence; both produce identical outputs and are cross-checked in
-tests.
+each step a handful of vector ops over the (batch, query) plane. The
+XLA twin (extend_portable.py) builds on it, and the CUDA kernel
+(cuda/sw_extend.cuh) implements the same recurrence; all produce
+identical outputs and are cross-checked in tests.
 
 Scoring matches SSW: +A for equal codes < 4, else -B; gap of length L
 costs O + (L-1)*E; local alignment (H floored at 0). Direction nibbles
@@ -121,7 +121,7 @@ def sw_forward(
             | (e_is_ext.astype(jnp.uint8) << 2)
             | (f_is_ext.astype(jnp.uint8) << 3)
             # bit 4: code equality, for sequence-free traceback (same
-            # encoding as sw_pallas; host traceback masks it off)
+            # encoding as the CUDA kernel; host traceback masks it off)
             | ((q_i32 == revt).astype(jnp.uint8) << 4)
         )
         dirs = jnp.where(valid, dirs, jnp.uint8(0))

@@ -1,5 +1,5 @@
 """Host-side traceback over direction nibbles produced by the wavefront
-Smith-Waterman kernels (sw_jax / sw_pallas).
+Smith-Waterman forward pass (sw_jax).
 
 Vectorized over the batch: every iteration advances all unfinished
 alignments one step (one numpy gather per step). The recorded op stream is

@@ -1,7 +1,7 @@
 """Multi-host data-parallel mapping over jax.distributed.
 
 The reference has no distributed layer (single process + one GPU,
-/root/reference/src/pc.cpp); this is the TPU-native scale-out design
+reference src/pc.cpp); this is this repo's scale-out design
 (SURVEY.md §2.7): every host runs the same binary, `jax.distributed`
 forms the pod, read chunks are sharded across hosts by chunk index
 (round-robin, so no coordination is needed beyond the deterministic
@@ -151,9 +151,9 @@ class PodShardedIndex:
     This is the whole-genome scale-out the blueprint demands (SURVEY
     §2.7; BASELINE config 5 "sharded GRCh38 index" past one host's
     memory); the reference has no analog (single process + NUMA
-    replicas, src/main.cpp:325-360). On a TPU pod the same ownership
-    rule rides ICI via ShardedIndex; this class is the cross-HOST tier
-    above it.
+    replicas, src/main.cpp:325-360). Within one host the same ownership
+    rule spans the devices via ShardedIndex; this class is the cross-HOST
+    tier above it.
     """
 
     _HDR = "<qqq"  # nq, cap, opcode
@@ -183,8 +183,8 @@ class PodShardedIndex:
         self._base = lo
         # slice-trimmed bucket table: the engine's 75 ns ix_find owes its
         # speed to the bucket narrowing; a flat searchsorted over the
-        # slice was measured 6x the whole lookup cost (docs/PERF.md
-        # §1b'). The slice covers a contiguous top-bits range, so only
+        # slice costs several times the whole lookup. The slice covers a
+        # contiguous top-bits range, so only
         # those buckets are kept (~(2^bits)/nprocs entries).
         bits = int(index.bits)
         self._bits = bits
@@ -226,7 +226,7 @@ class PodShardedIndex:
         self._conn_lock = threading.Lock()
         self._pool = None  # lazily-built remote fan-out executor
         # wire-traffic telemetry (per process; batch-granular, so the
-        # lock is cold): docs/PERF.md §1b' pod-mode characterization
+        # lock is cold)
         self._stats_lock = threading.Lock()
         self.stats = {"lookup_batches": 0, "lookup_keys": 0,
                       "remote_batches": 0, "remote_keys": 0,
@@ -363,8 +363,7 @@ class PodShardedIndex:
                 # sparse response: run entries only for found keys
                 # (min(count, cap) each, key order) — the dense form was
                 # nq*cap*8 B ≈ 260 MB per 48k-read chunk at cap 30; the
-                # sparse form carries only real entries (docs/PERF.md
-                # §1b')
+                # sparse form carries only real entries
                 conn.sendall(found.tobytes() + gpos.tobytes() +
                              count.tobytes() +
                              struct.pack("<q", ent_p.shape[0]) +

@@ -1,7 +1,7 @@
 """Multi-chip scaling over a jax.sharding.Mesh.
 
 The reference is single-node threads + one GPU (SURVEY.md §2.7: no
-distributed backend). The TPU-native scaling design introduced here:
+distributed backend). The scaling design introduced here:
 
 * **Data parallelism over reads** ('dp' mesh axis): each chip processes a
   shard of the extension batch — the analog of the reference's N worker
@@ -17,7 +17,7 @@ distributed backend). The TPU-native scaling design introduced here:
   (position, packed) records (what `add_to_hits_per_ref` walks,
   reference src/nam.cpp:68-85, src/index.hpp:57-147). Off-shard results
   are zero, so a psum over the mesh combines them; candidate routing
-  rides ICI collectives instead of host gathers. `chain/sharded_nams.py`
+  rides device collectives instead of host gathers. `chain/sharded_nams.py`
   builds NAMs from these prefetched runs, byte-equal to the host path.
 * **Stats reduction**: per-chip AlignmentStatistics psum — the analog of
   summing per-thread stats at exit (src/main.cpp:597-615).
@@ -47,7 +47,7 @@ def shard_bounds(hashes: np.ndarray, n_shards: int) -> np.ndarray:
     """Run-aligned contiguous cut points into the hash-sorted arrays:
     n_shards+1 bounds, each cut moved DOWN to the first entry of its
     equal-hash run so no run straddles two shards. The SINGLE source of
-    the ownership rule — the ICI tier (`shard_index_by_hash`) and the
+    the ownership rule — the device tier (`shard_index_by_hash`) and the
     cross-host pod tier (`multihost.PodShardedIndex`) must agree on who
     owns a hash, so both call this."""
     n = hashes.shape[0]
@@ -208,7 +208,7 @@ class ShardedIndex:
         batch to every chip and all-reduces dense (NQ, cap) run
         matrices, i.e. ~(8*cap + 24) bytes/key of ring traffic per chip;
         the routed variant moves (8 + 8*cap + 24)/n_shards bytes/key
-        over host<->device links and ZERO over ICI. On a multi-host pod
+        over host<->device links and ZERO between devices. On a multi-host pod
         the per-host batch routes to local chips the same way; only keys
         owned by remote hosts' shards need a cross-host exchange (an
         all_to_all of ~NQ/n keys), which this single-host code path does
@@ -335,8 +335,8 @@ def sharded_find(mesh: Mesh, index, queries, cap: Optional[int] = None):
 def data_parallel_extend(mesh: Mesh, params, q_codes, t_codes, qlen, tlen):
     """Data-parallel batched extension: batch dimension sharded over the
     mesh, each chip runs the wavefront DP on its shard, per-chip stats are
-    psum'd. Uses the portable lax.scan kernel so it also executes on CPU
-    meshes (the Pallas kernel is single-chip per shard in production).
+    psum'd. Uses the lax.scan forward pass (sw_jax) so it runs on any
+    mesh, CPU included.
 
     Returns (score, t_end, q_end, total_cells) with score/... sharded
     like the inputs and total_cells replicated.

@@ -1,10 +1,10 @@
-"""Two-phase chunk mapping with batched (TPU) gapped extension.
+"""Two-phase chunk mapping with batched (device) gapped extension.
 
 Mirrors the reference's split-phase production path
 (/root/reference/src/aln.cpp align_{SE,PE}_read_part / _last and the
 part2_* helpers in src/pc.cpp): phase A runs seeding, NAM finding and all
 decision logic that does not need gapped-alignment scores, recording a
-todo list per read; pending gapped alignments are batched on the TPU;
+todo list per read; pending gapped alignments are batched on the device;
 phase B replays the scoring logic (early exits, reservoir sampling,
 pairing) over the now-complete results.
 

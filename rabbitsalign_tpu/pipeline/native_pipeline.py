@@ -3,16 +3,16 @@
 Drives the two-phase schedule of the reference's async workers
 (/root/reference/src/pc.cpp:1206-1510): phase A of chunk i+1 (C++) runs
 while the device extends chunk i's batches; phase B (C++) then finishes
-chunk i. Device dispatch is asynchronous (jax) so the TPU works while the
-host seeds.
+chunk i. Device dispatch is asynchronous (jax) so the device works while
+the host seeds.
 
-When no device is used (``--no-tpu`` or no TPU present) the engine's
-built-in SSW resolves all gapped jobs natively, which is the fastest host
-path as well.
+When no device is used (``--no-tpu``) the engine's built-in SSW resolves
+all gapped jobs natively.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 from typing import Callable, Iterable, Tuple
 
@@ -20,18 +20,13 @@ import numpy as np
 
 from ..native.engine import NativeEngine, engine_available
 
-_cache_enabled = False
-
-
 def boost_mapping_thread(level: int = -5) -> bool:
     """Renice the CALLING thread (Linux: setpriority with a tid applies
-    per-thread) so phase A outranks the in-process jax/grpc client
-    threads under CFS when they contend for cores. The isolation
-    experiment (docs/PERF.md section 3) showed the live-dispatch client
-    work inflating phase A ~1.3x on a single-core host; a -5 nice delta
-    shifts the contended share toward the mapping threads WITHOUT
-    starving the client (unlike SCHED_FIFO, which would stall uploads of
-    the previous chunk for the whole phase-A burst). No-op without
+    per-thread) so phase A outranks the in-process jax client threads
+    under CFS when they contend for cores; a -5 nice delta shifts the
+    contended share toward the mapping threads WITHOUT starving the
+    client (unlike SCHED_FIFO, which would stall uploads of the previous
+    chunk for the whole phase-A burst). No-op without
     privileges or on non-Linux. ``RSB_RENICE=0`` disables, ``RSB_RENICE=n``
     overrides the level."""
     import os
@@ -58,9 +53,7 @@ def pin_worker_thread(wid: int):
     id — the analog of the reference's consumer-thread affinity
     (/root/reference/src/pc.cpp:519-527 pins worker i to core i). Keeps
     each worker's index/cache working set on one core and away from the
-    jax client threads on many-core production hosts; correctness-
-    testable anywhere, perf-testable only where cores outnumber workers
-    (this box has one core — see docs/PERF.md). Returns the cpu id, or
+    jax client threads on many-core production hosts. Returns the cpu id, or
     None when pinning is unavailable (non-Linux, empty mask)."""
     import os
 
@@ -76,32 +69,6 @@ def pin_worker_thread(wid: int):
         return None
 
 
-def _enable_compilation_cache() -> None:
-    """Persist compiled extend programs across processes: a fresh CLI run
-    otherwise pays the ~5-30 s bucket-shape compiles inside the mapping
-    loop (the library path warms up explicitly; the reference's analog is
-    GASAL2's ahead-of-time-built kernels)."""
-    global _cache_enabled
-    if _cache_enabled:
-        return
-    _cache_enabled = True
-    import os
-
-    import jax
-
-    try:
-        cache_dir = os.path.join(
-            os.environ.get("RABBITSALIGN_TPU_CACHE",
-                           os.path.expanduser("~/.cache/rabbitsalign_tpu")),
-            "jaxcache",
-        )
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # pragma: no cover - older jax
-        pass
-
-
 _RESIDENT_CACHE: dict = {}
 _SEED_IX_CACHE: dict = {}  # (id(index), device) -> uploaded index arrays
 _RESIDENT_LOCK = threading.Lock()
@@ -109,9 +76,9 @@ _RESIDENT_LOCK = threading.Lock()
 
 def _resident_ref_codes(references, engine, devices):
     # the lock matters: threaded workers construct their pipelines
-    # concurrently, and pack_ref_pages + the ~25ms-latency device_put
-    # release the GIL — an unlocked miss path would upload N full
-    # genome copies and pin N x genome-size HBM for the whole run
+    # concurrently, and pack_ref_pages + device_put release the GIL — an
+    # unlocked miss path would upload N full genome copies and pin
+    # N x genome-size device memory for the whole run
     key = id(references)
     with _RESIDENT_LOCK:
         cached = _RESIDENT_CACHE.get(key)
@@ -140,10 +107,11 @@ class NativePipeline:
         read_group_id: str = "",
         use_device: bool = True,
         batch_size: int = 1024,
-        kernel: str = "auto",
+        kernel=None,
         device_seed: bool = False,
         shard_index: bool = False,
         sharded_index=None,
+        device_rr=None,
     ):
         self.engine = NativeEngine(
             index, index_parameters, references, aln_params, map_param,
@@ -154,8 +122,8 @@ class NativePipeline:
             # ssw.c's striped lazy-F pruning diverges from the device
             # kernel's textbook DP exactly when gap extension is as
             # cheap as opening (O == E; probed over 12k tie-dense pairs
-            # — zero divergences at any O > E, see docs/PERF.md round 4
-            # and the align/ssw.py module docstring). Host SSW keeps
+            # — zero divergences at any O > E, see the align/ssw.py
+            # module docstring). Host SSW keeps
             # byte-parity with the reference there; device dispatch
             # would not. E > O is rejected by the CLI already.
             from ..utils.logger import logger
@@ -180,43 +148,42 @@ class NativePipeline:
             self._sharded = ShardedIndex(make_mesh(), index)
         # --device-seed: seeding + index find run on the accelerator
         # (ops/seed_device.seed_and_find); phase A consumes the preseed.
-        # Off by default: worth it only when the host<->device link can
-        # carry the per-strobe results back cheaply (see docs/PERF.md)
+        # Off by default (ROADMAP: not yet measured against host seeding)
         self.device_seed = device_seed and use_device
         self._seed_ix = None
         self._params = index_parameters
         self._index = index
         self._sw = None
         self._devices = None
-        self._next_dev = 0
+        self._next_dev = 0  # multi-device dispatches made by this pipeline
+        # round-robin position over the devices; threaded workers share
+        # one so a few dispatches per worker still cover every device
+        self._device_rr = device_rr if device_rr is not None else itertools.count()
+        self.device_pairs = 0  # pairs sent through _dispatch
+        self.kernel = None
         if use_device:
             import jax
 
-            _enable_compilation_cache()
-
+            from ..ops.extend_device import extend_program
             from ..ops.sw_jax import SwParams
 
-            # kernel="auto": Pallas on real accelerators, the portable
-            # lax.scan twin (ops/extend_portable.py, byte-identical
-            # outputs) on CPU backends — which is what lets the device
-            # dispatch path run on virtual CPU meshes in tests/dryruns
-            if kernel == "auto":
-                kernel = ("portable" if jax.devices()[0].platform == "cpu"
-                          else "pallas")
-            self.kernel = kernel
+            # kernel=None: the extend program of the observed platform
+            # (ops/extend_device.extend_program); callers may pass another
+            # program body to compare programs on one device
+            self.kernel = kernel or extend_program(jax.devices()[0].platform)
             self._sw = SwParams(
                 aln_params.match, aln_params.mismatch, aln_params.gap_open,
                 aln_params.gap_extend,
             )
             # round-robin independent extend batches across all local
-            # chips: data parallelism over the batch dimension needs no
+            # devices: data parallelism over the batch dimension needs no
             # collectives (each batch is self-contained), so this is the
-            # natural multi-chip mapping of the reference's GPU streams
+            # natural multi-device mapping of the reference's GPU streams
             self._devices = jax.local_devices()
             # resident reference: the genome (nt4 codes) lives in each
-            # chip's HBM for the whole run; per-batch uploads carry only
-            # query codes + u32 target offsets (fill_batch_q). One copy
-            # per device per run, shared by all threaded workers.
+            # device's memory for the whole run; per-batch uploads carry
+            # only query codes + u32 target offsets (fill_batch_q2). One
+            # copy per device per run, shared by all threaded workers.
             self._ref_codes = _resident_ref_codes(
                 references, self.engine, self._devices
             )
@@ -326,7 +293,7 @@ class NativePipeline:
 
         eng = self.engine
         si = self._sharded
-        # host-routed lookups (zero ICI traffic; element-equal to the
+        # host-routed lookups (no device collectives; element-equal to the
         # psum variant — tests/test_sharded_index.py)
         find = getattr(si, "find_runs_routed", si.find_runs)
         h, total = eng.fx_seed_only(fx)
@@ -447,46 +414,43 @@ class NativePipeline:
         )
 
     def _dispatch(self, buf, Q, T, sub):
-        """Launch one extend dispatch on the next device (round-robin);
-        the kernel runs per `sub`-column group inside the dispatch and
-        gathers targets from that device's resident reference copy."""
+        """Launch one extend dispatch on the next device (round-robin),
+        gathering targets from that device's resident reference copy."""
         import jax
 
-        if self.kernel == "portable":
-            from ..ops.extend_portable import (
-                extend_batch_packed_resident_q2_portable as extend_fn,
-            )
-        else:
-            from ..ops.extend_device import (
-                extend_batch_packed_resident_q2 as extend_fn,
-            )
+        from ..ops.extend_device import extend_batch_packed_resident_q2
 
         di = 0
         if len(self._devices) > 1:
-            di = self._next_dev % len(self._devices)
+            di = next(self._device_rr) % len(self._devices)
             self._next_dev += 1
             buf = jax.device_put(buf, self._devices[di])
-        return extend_fn(buf, self._ref_codes[di], Q, T, self._sw, sub)
+        return extend_batch_packed_resident_q2(
+            buf, self._ref_codes[di], Q, T, self._sw, sub, self.kernel)
+
+    def _extend_chunk(self, chunk):
+        """Dispatch a phase-A chunk's gapped jobs to the device in bucket
+        batches (asynchronously); returns the pending (idxs, result, D)
+        list finish_chunk consumes."""
+        pending = []
+        if not (self.use_device and chunk.n_jobs):
+            return pending
+        for idxs, Q, T, B, sub in self.engine.plan_batches(chunk, self.batch_size):
+            buf = self._fill(chunk, idxs, B, Q, T)
+            pending.append((idxs, self._dispatch(buf, Q, T, sub), Q + T - 1))
+            self.device_pairs += len(idxs)
+        for _, out_dev, _ in pending:
+            # start the device->host copy as soon as the batch lands so
+            # finish_chunk's np.asarray is a wait, not a transfer
+            out_dev.copy_to_host_async()
+        return pending
 
     # --- two-phase API (callers drive the cross-chunk pipelining) -------
 
     def start_chunk(self, records1, records2, records3, chunk_index: int):
         """Phase A + async device dispatch; returns an opaque state."""
         chunk = self.engine.chunk_a(records1, records2, records3, chunk_index)
-        pending = []
-        if self.use_device and chunk.n_jobs:
-            for idxs, Q, T, B, sub in self.engine.plan_batches(chunk, self.batch_size):
-                buf = self._fill(chunk, idxs, B, Q, T)
-                out_dev = self._dispatch(buf, Q, T, sub)  # async
-                pending.append((idxs, out_dev, Q + T - 1))
-            for _, out_dev, _ in pending:
-                # start the device->host copy as soon as the batch lands so
-                # finish_chunk's np.asarray is a wait, not a transfer
-                try:
-                    out_dev.copy_to_host_async()
-                except Exception:  # pragma: no cover - backend-dependent
-                    pass
-        return chunk, pending
+        return chunk, self._extend_chunk(chunk)
 
     def finish_chunk(self, state) -> bytes:
         """Collect device results + phase B; returns the output bytes
@@ -525,96 +489,76 @@ class NativePipeline:
         return n_reads
 
     def counters(self) -> dict:
-        return self.engine.counters()
+        return {**self.engine.counters(), "device_pairs": self.device_pairs}
 
 
 def native_pipeline_available() -> bool:
     return engine_available()
 
 
+class _Prewarm(threading.Thread):
+    """Non-daemon worker whose exception is kept and re-raised by
+    result(): a compile failure must stop the run, not vanish."""
+
+    def __init__(self, fn):
+        super().__init__(daemon=False)
+        self._fn = fn
+        self.error = None
+
+    def run(self):
+        try:
+            self._fn()
+        except Exception as e:  # re-raised by result() in the caller
+            self.error = e
+
+    def result(self) -> None:
+        self.join()
+        if self.error is not None:
+            raise self.error
+
+
 def prewarm_extend_programs(aln_params, batch_size: int = 1024,
-                            ref_codes=None, r: int = 150,
-                            ref_len: int = None):
-    """Compile (or cache-load) the device extend programs for every
-    bucket shape in a daemon thread, so the work overlaps reference
-    loading / index building instead of stalling the first chunks
-    (the reference's analog: GASAL2 kernels are built ahead of time).
-    Returns the thread (join() optional)."""
-    import threading
+                            r: int = 150, ref_len: int = 1) -> _Prewarm:
+    """Compile (or cache-load) the extend program of this platform for
+    every bucket shape the planner can emit, in a thread, so the work
+    (including the CUDA library's first build) overlaps reference loading
+    and index building. Call result() on the returned thread before
+    mapping: it waits and re-raises any failure."""
 
     def run():
-        try:
-            import numpy as _np
+        import jax
 
-            import jax as _jax
+        from ..native.engine import engine_buckets
+        from ..ops.extend_device import (
+            REF_PAGE_OVERLAP,
+            REF_PAGE_SIZE,
+            _extend_resident_q2,
+            extend_program,
+        )
+        from ..ops.sw_jax import SwParams
 
-            from ..native.engine import engine_buckets
-            from ..ops.extend_device import extend_batch_packed_grouped
-            from ..ops.sw_jax import SwParams
+        body = extend_program(jax.devices()[0].platform)
+        sw = SwParams(aln_params.match, aln_params.mismatch,
+                      aln_params.gap_open, aln_params.gap_extend)
+        # the resident pages' shape depends only on the genome length
+        n_pages = max(1, -(-ref_len // REF_PAGE_SIZE))
+        width = min(REF_PAGE_SIZE, max(ref_len, 1)) + REF_PAGE_OVERLAP
+        codes_s = jax.ShapeDtypeStruct((n_pages, width), np.uint8)
+        for Q, T, bcap, groups in engine_buckets(r):
+            sub = min(batch_size, bcap)
+            rows = (Q + 3) // 4 + (Q + 7) // 8 + 8
+            # every power-of-two group count the planner can emit
+            g = 1
+            while True:
+                buf_s = jax.ShapeDtypeStruct((rows, sub * g), np.uint8)
+                with jax.enable_x64(False):
+                    _extend_resident_q2.lower(
+                        buf_s, codes_s, Q, T, sw, sub, body).compile()
+                if g >= groups:
+                    break
+                g *= 2
 
-            _enable_compilation_cache()
-            # once per toolchain version: does int16 lower yet? (logs
-            # when the ~2x dtype lever becomes available)
-            from ..ops.sw_pallas import probe_int16_lowering
-
-            probe_int16_lowering()
-            sw = SwParams(aln_params.match, aln_params.mismatch,
-                          aln_params.gap_open, aln_params.gap_extend)
-            from ..ops.extend_device import (
-                _extend_batch_packed_resident_q2,
-            )
-
-            # every bucket, high-volume first: on a warm persistent cache
-            # these are cheap loads; on a cold cache the long-bucket
-            # compiles run here instead of stalling the mapping loop
-            # 5-30 s when its first long-bucket chunk arrives (the
-            # round-2 "contends with the mapping loop" concern only
-            # applies to the cold first run, which pays the compiles
-            # either way)
-            for Q, T, bcap, groups in engine_buckets(r):
-                sub = min(batch_size, bcap)
-                # every power-of-two group count the planner can emit
-                shapes = set()
-                g = 1
-                while True:
-                    shapes.add(sub * g)
-                    if g >= groups:
-                        break
-                    g *= 2
-                for B in sorted(shapes):
-                    if ref_codes is not None or ref_len is not None:
-                        # production layout (device-resident reference):
-                        # AOT lower+compile from shapes only — only the
-                        # genome LENGTH matters, so callers can pass
-                        # ref_len and skip materializing a coded copy
-                        from ..ops.extend_device import (
-                            REF_PAGE_OVERLAP, REF_PAGE_SIZE)
-
-                        n = (int(ref_len) if ref_len is not None
-                             else int(ref_codes.shape[0]))
-                        n_pages = max(1, -(-n // REF_PAGE_SIZE))
-                        width = (min(REF_PAGE_SIZE, max(n, 1))
-                                 + REF_PAGE_OVERLAP)
-                        rows = (Q + 3) // 4 + (Q + 7) // 8 + 8
-                        buf_s = _jax.ShapeDtypeStruct((rows, B), _np.uint8)
-                        codes_s = _jax.ShapeDtypeStruct(
-                            (n_pages, width), _np.uint8)
-                        with _jax.enable_x64(False):
-                            _extend_batch_packed_resident_q2.lower(
-                                buf_s, codes_s, Q, T, sw, sub
-                            ).compile()
-                    else:
-                        buf = _np.zeros((Q + T + 4, B), dtype=_np.uint8)
-                        buf[Q + T] = 4  # qlen 4 keeps the loops sane
-                        buf[Q + T + 2] = 4
-                        extend_batch_packed_grouped(buf, Q, T, sw, sub)
-        except Exception:  # pragma: no cover - no device, no problem
-            pass
-
-    # non-daemon: the interpreter waits for it at exit, which avoids the
-    # glibc "exception not rethrown" abort when a daemon thread is torn
-    # down inside a jax/XLA call (compiles finish in bounded time)
-    t = threading.Thread(target=run, daemon=False)
+    t = _Prewarm(run)
     t.start()
     return t
 
@@ -650,18 +594,7 @@ def _pipeline_map_file(self, path1, path2, interleaved, chunk_size, write,
                     chunk = self.engine.chunk_a_fx(fx, chunk_index)
             finally:
                 reader.free_chunk(fx)  # pooled buffer must always return
-            pending = []
-            if self.use_device and chunk.n_jobs:
-                for idxs, Q, T, B, sub in self.engine.plan_batches(chunk, self.batch_size):
-                    buf = self._fill(chunk, idxs, B, Q, T)
-                    out_dev = self._dispatch(buf, Q, T, sub)
-                    pending.append((idxs, out_dev, Q + T - 1))
-                for _, out_dev, _ in pending:
-                    try:
-                        out_dev.copy_to_host_async()
-                    except Exception:  # pragma: no cover
-                        pass
-            in_flight.append((chunk, pending))
+            in_flight.append((chunk, self._extend_chunk(chunk)))
             if len(in_flight) > depth:
                 write(self.finish_chunk(in_flight.popleft()))
         while in_flight:
@@ -709,7 +642,7 @@ class ThreadedNativePipeline:
         batch_size: int = 1024,
         n_workers: int = 3,
         queue_depth: int = 8,
-        kernel: str = "auto",
+        kernel=None,
         deterministic: bool = False,
         device_seed: bool = False,
         shard_index: bool = False,
@@ -722,11 +655,13 @@ class ThreadedNativePipeline:
             from ..parallel.sharding import ShardedIndex, make_mesh
 
             sharded = ShardedIndex(make_mesh(), index)
+        device_rr = itertools.count()
         self._mk = lambda: NativePipeline(
             index, index_parameters, references, aln_params, map_param,
             read_group_id, use_device=use_device, batch_size=batch_size,
             kernel=kernel, device_seed=device_seed,
             shard_index=shard_index, sharded_index=sharded,
+            device_rr=device_rr,
         )
         self.n_workers = max(1, n_workers)
         self.queue_depth = queue_depth
@@ -799,18 +734,7 @@ class ThreadedNativePipeline:
                             chunk = pipe.engine.chunk_a_fx(fx, ci)
                     finally:
                         reader.free_chunk(fx)
-                    pending = []
-                    if pipe.use_device and chunk.n_jobs:
-                        for idxs, Q, T, B, sub in pipe.engine.plan_batches(
-                                chunk, pipe.batch_size):
-                            buf = pipe._fill(chunk, idxs, B, Q, T)
-                            out_dev = pipe._dispatch(buf, Q, T, sub)
-                            pending.append((idxs, out_dev, Q + T - 1))
-                        for _, out_dev, _ in pending:
-                            try:
-                                out_dev.copy_to_host_async()
-                            except Exception:  # pragma: no cover
-                                pass
+                    pending = pipe._extend_chunk(chunk)
                     if prev is not None:
                         emit(prev[0], pipe.finish_chunk(prev[1]))
                     prev = (ci, (chunk, pending))
@@ -945,13 +869,7 @@ def _pipeline_map_file_sharded(self, path1, path2, interleaved, chunk_size,
             else:
                 chunk = self.engine.chunk_a_fx(fx, chunk_index)
             reader.free_chunk(fx)
-            pending = []
-            if self.use_device and chunk.n_jobs:
-                for idxs, Q, T, B, sub in self.engine.plan_batches(chunk, self.batch_size):
-                    buf = self._fill(chunk, idxs, B, Q, T)
-                    out_dev = self._dispatch(buf, Q, T, sub)
-                    pending.append((idxs, out_dev, Q + T - 1))
-            in_flight.append((chunk_index, (chunk, pending)))
+            in_flight.append((chunk_index, (chunk, self._extend_chunk(chunk))))
             if len(in_flight) > depth:
                 ci, state = in_flight.popleft()
                 shard_writer.write_chunk(ci, self.finish_chunk(state))

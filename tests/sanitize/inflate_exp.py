@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Isolation experiment for the in-process phase-A inflation (docs/PERF.md
-section 3): the same C++ phase A measures ~2x slower inside the bench
-process than standalone. Which ingredient causes it?
+"""Isolation experiment for in-process phase-A inflation: does the same
+C++ phase A run slower inside a process that dispatches device work than
+standalone, and which ingredient causes it?
 
 Run one MODE per process (fresh interpreter = clean thread/heap state):
   host    - engine only; jax imported (package import) but backend never
@@ -14,10 +14,11 @@ Usage: python tests/sanitize/inflate_exp.py MODE [n_passes]
 Prints per-pass elapsed + engine phase timers.
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
 import bench  # noqa: E402  (bench.py helpers: dataset + index)
 

@@ -1,4 +1,4 @@
-"""Pod-mode (PodShardedIndex) overhead measurement — docs/PERF.md §1b'.
+"""Pod-mode (PodShardedIndex) overhead measurement.
 
 Runs the SAME 48k-read SE workload at 40 Mbp three ways:
   1. single   — one process, full index, plain pipeline
@@ -8,8 +8,8 @@ Runs the SAME 48k-read SE workload at 40 Mbp three ways:
                 host arrays emptied), remote keys over the TCP side
                 channel with the concurrent fan-out
 
-All processes compete for this box's ONE core, so pod2's combined
-throughput UPPER-BOUNDS protocol overhead (two python runtimes + the
+When the processes share the host's cores, pod2's combined throughput
+UPPER-BOUNDS protocol overhead (two python runtimes + the
 server threads steal from each other); on a real multi-host deployment
 the per-process work is what scales. Reported per variant: reads/s
 (reads / max process wall), remote round-trips, keys and bytes per

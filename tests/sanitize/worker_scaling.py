@@ -1,9 +1,6 @@
-"""Worker-scaling overhead bound on a 1-core box — docs/PERF.md §3b.
-
-BASELINE's "reads/s scaling measured at 1 chip / 1 host / N hosts"
-cannot be measured for real here (one core, one chip); what CAN be
-bounded is the per-worker COST of the threaded pipeline: with N workers
-on one core the useful work is constant, so any wall increase over the
+"""Worker-scaling overhead bound: the per-worker COST of the threaded
+pipeline. Pinned to one core (taskset -c 0), N workers do constant useful
+work, so any wall increase over the
 single-pipeline run is pure orchestration overhead (producer thread,
 bounded queues, ordered merge, GIL crossings, per-worker engine state).
 A multicore deployment scales the useful work per core and pays exactly
@@ -11,7 +8,7 @@ this overhead per worker.
 
 Runs host-only (no device) so the jax client threads don't add noise;
 the production device path overlaps dispatch with host work and its
-contention is quantified separately (docs/PERF.md §3).
+contention is measured separately (tests/sanitize/inflate_exp.py).
 
 Run: python tests/sanitize/worker_scaling.py [n_reads]
 """

@@ -1,6 +1,6 @@
 """Device (lax.scan) sweep-line NAM merge vs the host implementation —
-SURVEY §7's 'irregular NAM chaining on TPU' hard part, validated on the
-CPU backend (the kernel is pure jnp)."""
+SURVEY §7's 'irregular NAM chaining on the accelerator' hard part,
+validated on the CPU backend (the kernel is pure jnp)."""
 
 import random
 

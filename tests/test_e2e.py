@@ -72,6 +72,30 @@ def test_se_sam(dataset):
     assert any(l.startswith("@SQ\tSN:chr1\tLN:80000") for l in header)
 
 
+def test_se_device_cli_matches_host(dataset, capsys):
+    """The CLI's device path on CPU (the XLA twin, prewarmed before
+    mapping) gives the --no-tpu SAM byte for byte, says what it extends
+    on, and counts the pairs it extended."""
+    tmp, genome, ref = dataset
+    random.seed(8)
+    reads, _ = simulate_se(genome, 240)
+    fq = tmp / "se_dev.fq"
+    write_fastq(fq, reads)
+    outs = {}
+    for mode in ("device", "host"):
+        out = tmp / f"se_{mode}.sam"
+        flags = ["--tpu-batch", "64"] if mode == "device" else ["--no-tpu"]
+        assert main(flags + ["-t", "2", ref, str(fq), "-o", str(out)]) == 0
+        outs[mode] = [l for l in open(out) if not l.startswith("@PG")]
+        log = capsys.readouterr().err
+        if mode == "device":
+            assert "Extending on cpu" in log and "XLA twin" in log
+            assert "Extend programs ready" in log
+            pairs = int(log.split("Device-extended pairs: ")[1].split()[0])
+            assert pairs > 0
+    assert outs["device"] == outs["host"]
+
+
 def test_se_paf(dataset):
     tmp, genome, ref = dataset
     random.seed(6)

@@ -281,7 +281,7 @@ def test_engine_synthetic_device_results(world):
                     else:
                         runs.append([v, 1])
                 # runs live at slots [M - n_runs, M) in forward order
-                # (tb_pallas descending-slot layout), 2 bytes per run:
+                # (the extend programs' descending-slot layout), 2 bytes per run:
                 # length lo, then (op << 5) | (length >> 8)
                 off = RLE_M - min(len(runs), RLE_M)
                 for r, (v, ln) in enumerate(runs[:RLE_M]):
@@ -310,10 +310,10 @@ def test_engine_synthetic_device_results(world):
 def test_engine_device_parity(world):
     """Device-dispatched extension must match the host-resolved engine
     byte for byte (validation + end-bonus post-processing identical).
-    On the CPU test mesh this drives the portable kernel round-robined
-    over all 8 virtual devices with per-device resident reference pages
-    — the multi-chip production dispatch path; on a real TPU (run with
-    RABBITSALIGN_TPU_TEST_TPU=1) the same run uses the Pallas kernels."""
+    On the CPU test mesh this drives the XLA twin round-robined over all
+    8 virtual devices with per-device resident reference pages — the
+    multi-device production dispatch path; on a GPU (run with
+    RABBITSALIGN_TEST_GPU=1) the same run uses the CUDA kernel."""
     import jax
     import numpy as np
 
@@ -331,8 +331,7 @@ def test_engine_device_parity(world):
                               use_device=use_device)
         if jax.devices()[0].platform == "cpu":
             # small batches so several dispatches round-robin across the
-            # virtual devices (on TPU keep the production bucket shapes —
-            # every distinct batch width is a fresh ~30 s compile)
+            # virtual devices (on a GPU keep the production bucket shapes)
             pipe.batch_size = 64
         pipe.engine.MIN_DEVICE_JOBS = 1
         texts = []

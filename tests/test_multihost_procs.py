@@ -46,6 +46,23 @@ def _free_port() -> int:
     return port
 
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _child_env():
+    """CPU-only child processes that import the package from this
+    checkout, whether or not it is pip-installed."""
+    env = dict(os.environ)
+    env["JAX_PLATFORMS"] = "cpu"
+    env.pop("XLA_FLAGS", None)  # single virtual device per process
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, env.get("PYTHONPATH", "")) if p)
+    return env
+
+
+CLI = [sys.executable, "-m", "rabbitsalign_tpu.cli"]
+
+
 def test_two_process_pod_matches_single(tmp_path):
     r = random.Random(17)
     genome = random_dna(150_000, seed=17)
@@ -68,15 +85,13 @@ def test_two_process_pod_matches_single(tmp_path):
     out_base = str(tmp_path / "pod.sam")
     coord = f"127.0.0.1:{_free_port()}"
     worker = os.path.join(os.path.dirname(__file__), "multihost_worker.py")
-    env = dict(os.environ)
-    env["JAX_PLATFORMS"] = "cpu"
-    env.pop("XLA_FLAGS", None)  # single virtual device per process
+    env = _child_env()
     procs = [
         subprocess.Popen(
             [sys.executable, worker, coord, "2", str(pid), str(ref_fa),
              str(p1), "", out_base],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env,
-            cwd="/root/repo",
+            cwd=REPO,
         )
         for pid in (0, 1)
     ]
@@ -151,15 +166,13 @@ def test_two_process_pod_sharded_index(tmp_path):
     coord = f"127.0.0.1:{_free_port()}"
     peers = f"127.0.0.1:{_free_port()},127.0.0.1:{_free_port()}"
     worker = os.path.join(os.path.dirname(__file__), "multihost_worker.py")
-    env = dict(os.environ)
-    env["JAX_PLATFORMS"] = "cpu"
-    env.pop("XLA_FLAGS", None)
+    env = _child_env()
     procs = [
         subprocess.Popen(
             [sys.executable, worker, coord, "2", str(pid), str(ref_fa),
              str(p1), "", out_base, "shard", peers],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env,
-            cwd="/root/repo",
+            cwd=REPO,
         )
         for pid in (0, 1)
     ]
@@ -202,8 +215,8 @@ def test_two_process_pod_sharded_index(tmp_path):
 
 
 def test_pod_sharded_cli_end_to_end(tmp_path):
-    """The --pod-index-peers CLI surface: two real `rabbitsalign-tpu`
-    processes form the pod, each holding only its index slice, and the
+    """The --pod-index-peers CLI surface: two real CLI processes form
+    the pod, each holding only its index slice, and the
     merged SAM equals a plain single-process CLI run (modulo @PG CL)."""
     r = random.Random(31)
     genome = random_dna(100_000, seed=31)
@@ -218,12 +231,10 @@ def test_pod_sharded_cli_end_to_end(tmp_path):
                 a[r.randrange(150)] = r.choice("ACGT")
             f1.write(f"@s{i}\n{''.join(a)}\n+\n{'I'*150}\n")
 
-    env = dict(os.environ)
-    env["JAX_PLATFORMS"] = "cpu"
-    env.pop("XLA_FLAGS", None)
+    env = _child_env()
     single = subprocess.run(
-        ["rabbitsalign-tpu", "--no-tpu", str(ref_fa), str(p1)],
-        capture_output=True, env=env, cwd="/root/repo")
+        CLI + ["--no-tpu", str(ref_fa), str(p1)],
+        capture_output=True, env=env, cwd=REPO)
     assert single.returncode == 0, single.stderr.decode()[-800:]
 
     out = str(tmp_path / "pod.sam")
@@ -231,12 +242,12 @@ def test_pod_sharded_cli_end_to_end(tmp_path):
     peers = f"127.0.0.1:{_free_port()},127.0.0.1:{_free_port()}"
     procs = [
         subprocess.Popen(
-            ["rabbitsalign-tpu", "--no-tpu", "-o", out,
+            CLI + ["--no-tpu", "-o", out,
              "--num-nodes", "2", "--node-id", str(pid),
              "--coordinator", coord, "--pod-index-peers", peers,
              str(ref_fa), str(p1)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env,
-            cwd="/root/repo")
+            cwd=REPO)
         for pid in (0, 1)
     ]
     for p in procs:

@@ -1,5 +1,7 @@
-"""Device-op tests on CPU: lax.scan wavefront SW vs the SSW port, host
-traceback, and the multi-chip sharding helpers on a virtual mesh."""
+"""Device-op tests: lax.scan wavefront SW vs the SSW port, host
+traceback, the extend programs (XLA twin, CUDA kernel arithmetic on the
+host, the CUDA kernel itself on a GPU) and the multi-device sharding
+helpers on a virtual mesh."""
 
 import random
 
@@ -68,9 +70,10 @@ def test_sw_forward_matches_ssw():
 
 
 def test_dryrun_multichip_cpu():
+    import os
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import __graft_entry__ as g
 
     g.dryrun_multichip(8)
@@ -116,7 +119,7 @@ def test_dumpstrobes_tool(tmp_path):
 
 def _extend_parity_pairs(Q, T):
     """Random extend pairs incl. junk, empty, and a >RLE_M-run overflow
-    case — shared by the Pallas (TPU) and portable (CPU) parity tests."""
+    case — shared by the XLA twin, host-emulated and CUDA parity tests."""
     r = random.Random(77)
     pairs = []
     for i in range(40):
@@ -136,16 +139,15 @@ def _extend_parity_pairs(Q, T):
         for i in range(252)
     )
     pairs.append((q_ov, t_ov))
-    # pad the batch to a lane-aligned width (the engine always dispatches
-    # full 256/512-wide buckets; unaligned lane counts are unsupported)
+    # pad to a full 128-pair batch (the engine dispatches whole buckets)
     while len(pairs) % 128:
         pairs.append(("", ""))
     return pairs
 
 
 def _check_extend_parity(pairs, Q, T, out, sw=PARAMS):
-    """Compare a packed device/portable extend output against the
-    sw_jax + host-traceback golden."""
+    """Compare a packed extend-program output against the sw_jax +
+    host-traceback golden."""
     from rabbitsalign_tpu.ops.extend_device import (
         RLE_M,
         ops_to_cigars,
@@ -183,127 +185,157 @@ def _check_extend_parity(pairs, Q, T, out, sw=PARAMS):
         assert saw_overflow, "overflow case must exercise the 0xFFFF marker"
 
 
-@pytest.mark.parametrize("sw", [
+SCORINGS = [
     SwParams(2, 8, 12, 1),   # defaults
     SwParams(1, 1, 2, 1),    # flat scoring: dense score ties
     SwParams(3, 2, 3, 0),    # free gap extension
-])
-def test_portable_extend_matches_host_traceback(sw):
-    """The portable (lax.scan) fused extend path — forward + in-walk RLE
-    traceback + packed output — must match the host traceback golden on
-    CPU, including degenerate scoring (dense ties, zero-cost gap
-    extension). This is the cross-check that also validates the Pallas
-    traceback *semantics* without a TPU (the kernels share the walk and
-    slot layout)."""
-    from rabbitsalign_tpu.ops.extend_device import pack_input
-    from rabbitsalign_tpu.ops.extend_portable import extend_batch_packed_portable
+]
 
-    Q, T = 256, 512
+
+def _packed_parity_input(Q, T):
+    from rabbitsalign_tpu.ops.extend_device import pack_input
+
     pairs = _extend_parity_pairs(Q, T)
     qc, tc, ql, tl = _pack(pairs, Q, T)
     buf = pack_input(
         np.ascontiguousarray(qc.T), np.ascontiguousarray(tc.T), ql, tl
     )
-    out = np.asarray(extend_batch_packed_portable(buf, Q, T, sw))
+    return pairs, buf
+
+
+@pytest.mark.parametrize("sw", SCORINGS)
+def test_portable_extend_matches_host_traceback(sw):
+    """The XLA twin of the extend program — forward + in-walk RLE
+    traceback + packed output — must match the host traceback golden on
+    CPU, including degenerate scoring (dense ties, zero-cost gap
+    extension)."""
+    from rabbitsalign_tpu.ops.extend_device import extend_batch_packed, extend_program
+
+    Q, T = 256, 512
+    pairs, buf = _packed_parity_input(Q, T)
+    out = np.asarray(extend_batch_packed(buf, Q, T, sw, extend_program("cpu")))
     _check_extend_parity(pairs, Q, T, out, sw)
 
 
-def test_pallas_extend_matches_sw_jax_tpu():
-    """Fused Pallas extend (int32 DP forward + in-walk RLE traceback)
-    must reproduce the portable sw_jax + host-traceback golden exactly:
-    scores, end/begin coordinates, cigars, edit counts, and the >RLE_M
-    overflow marker. Needs a real TPU (run with
-    RABBITSALIGN_TPU_TEST_TPU=1)."""
-    import jax
+@pytest.mark.parametrize("sw", SCORINGS)
+def test_cuda_kernel_arithmetic_matches_xla_twin_on_host(sw):
+    """The CUDA kernel's per-lane arithmetic (ops/cuda/sw_extend.cuh),
+    compiled for the host with the warp's shuffles played out in a loop,
+    must give the XLA twin's packed output byte for byte. Integer
+    arithmetic throughout, so the comparison is exact equality."""
+    from rabbitsalign_tpu.ops.extend_cuda import extend_host_emulated
+    from rabbitsalign_tpu.ops.extend_device import extend_batch_packed, extend_program
 
-    if jax.devices()[0].platform == "cpu":
-        pytest.skip("pallas extend path needs a TPU")
-
-    from rabbitsalign_tpu.ops.extend_device import extend_batch_packed, pack_input
-
-    Q, T = 256, 512  # the production high-volume bucket shape
-    pairs = _extend_parity_pairs(Q, T)
+    Q, T = 256, 512
+    pairs, buf = _packed_parity_input(Q, T)
+    twin = np.asarray(extend_batch_packed(buf, Q, T, sw, extend_program("cpu")))
     qc, tc, ql, tl = _pack(pairs, Q, T)
-    buf = pack_input(
-        np.ascontiguousarray(qc.T), np.ascontiguousarray(tc.T), ql, tl
-    )
-    out = np.asarray(extend_batch_packed(buf, Q, T, PARAMS))
-    _check_extend_parity(pairs, Q, T, out)
-    # degenerate scoring stresses the unmasked-DP argument (pad paths
-    # must lose best-cell ties via the min-t/min-q tie-break, not via
-    # penalties): flat scores make ties dense
-    sw2 = SwParams(1, 1, 2, 1)
-    out2 = np.asarray(extend_batch_packed(buf, Q, T, sw2))
-    _check_extend_parity(pairs, Q, T, out2, sw2)
+    emu = extend_host_emulated(qc.T, tc.T, ql, tl, sw)
+    assert np.array_equal(emu, twin)
+    _check_extend_parity(pairs, Q, T, emu, sw)
 
 
-def test_pick_dtype_env_gate(monkeypatch):
-    """RSB_SW16 is an opt-IN: unset AND '0' must both select int32
-    (regression: string truthiness made RSB_SW16=0 enable the 0.86x
-    int16 path), '1' selects int16 when the score span bounds hold."""
-    import jax.numpy as jnp
-
-    from rabbitsalign_tpu.ops.sw_jax import SwParams
-    from rabbitsalign_tpu.ops.sw_pallas import _pick_dtype
-
-    p = SwParams(2, 8, 12, 1)
-    monkeypatch.delenv("RSB_SW16", raising=False)
-    assert _pick_dtype(152, 256, p) == jnp.int32
-    monkeypatch.setenv("RSB_SW16", "0")
-    assert _pick_dtype(152, 256, p) == jnp.int32
-    monkeypatch.setenv("RSB_SW16", "1")
-    assert _pick_dtype(152, 256, p) == jnp.int16
-    # span bound fails (worst H = 100*512 alone exceeds 2^15)
-    assert _pick_dtype(512, 2048, SwParams(100, 8, 12, 1)) == jnp.int32
-
-
-def test_pallas_forward_int16_bitexact_tpu():
-    """The opt-in int16 DP path (RSB_SW16=1; synthesized sign-bit
-    compares, see _pick_dtype) must be BIT-EXACT vs the production
-    int32 kernel: same scores, end coordinates, and every direction
-    byte. Keeps the dormant 2x lever from rotting until the toolchain
-    lowers native i16 compares. Needs a real TPU."""
+def test_cuda_wrapper_shapes_match_twin_layout():
+    """The FFI wrapper's host-side geometry: rows per lane and the
+    direction scratch per bucket, and an abstract trace of the wrapper
+    giving exactly the XLA twin's packed (2*RLE_M + 14, B) u8 layout."""
     import jax
     import jax.numpy as jnp
 
-    if jax.devices()[0].platform == "cpu":
-        pytest.skip("pallas extend path needs a TPU")
+    from rabbitsalign_tpu.ops import extend_cuda
+    from rabbitsalign_tpu.ops.extend_device import OUT_ROWS, RLE_M
+    from rabbitsalign_tpu.ops.extend_portable import extend_body as twin
 
-    from rabbitsalign_tpu.ops import sw_pallas
+    assert OUT_ROWS == 2 * RLE_M + 14
+    for Q, R in ((1, 1), (32, 1), (33, 2), (152, 5), (160, 5), (161, 8),
+                 (256, 8), (384, 12), (512, 16)):
+        assert extend_cuda.rows_per_lane(Q) == R, Q
+    with pytest.raises(ValueError):
+        extend_cuda.rows_per_lane(513)
+    # a pair's plane holds every diagonal by 32*R padded query rows
+    assert extend_cuda.scratch_shape(152, 256, 1024) == (1024, 407 * 160)
+    assert extend_cuda.scratch_shape(512, 2048, 512) == (512, 2559 * 512)
+    for Q, T, B in ((152, 256, 64), (512, 2048, 8)):
+        args = (jax.ShapeDtypeStruct((Q, B), jnp.uint8),
+                jax.ShapeDtypeStruct((T, B), jnp.uint8),
+                jax.ShapeDtypeStruct((B,), jnp.int32),
+                jax.ShapeDtypeStruct((B,), jnp.int32))
+        got = jax.eval_shape(
+            lambda *a: extend_cuda.extend_body(*a, PARAMS, B), *args)
+        want = jax.eval_shape(lambda *a: twin(*a, PARAMS, B), *args)
+        assert (got.shape, got.dtype) == (want.shape, want.dtype) == (
+            (OUT_ROWS, B), jnp.uint8)
 
-    rng = np.random.RandomState(7)
-    Q, T, B = 152, 256, 256
-    q = rng.randint(0, 5, (Q, B)).astype(np.uint8)  # includes N=4
-    t = rng.randint(0, 5, (T, B)).astype(np.uint8)
-    for i in range(B):  # plant real alignments with mutations
-        ln = rng.randint(20, Q)
-        st = rng.randint(0, T - ln)
-        t[st:st + ln, i] = q[:ln, i]
-        for _ in range(ln // 12):
-            t[st + rng.randint(ln), i] = rng.randint(0, 4)
-    ql = rng.randint(10, Q + 1, B).astype(np.int32)
-    tl = rng.randint(10, T + 1, B).astype(np.int32)
 
-    def run(dtype):
-        orig = sw_pallas._pick_dtype
-        sw_pallas._pick_dtype = lambda _q, _t, _p: dtype
-        try:
-            with jax.enable_x64(False):
-                fn = jax.jit(lambda a, b, c, d:
-                             sw_pallas._sw_forward_pallas_core(
-                                 a, b, c, d, PARAMS))
-                out = fn(jnp.asarray(q), jnp.asarray(t),
-                         jnp.asarray(ql), jnp.asarray(tl))
-                return [np.asarray(x) for x in out[:4]]
-        finally:
-            sw_pallas._pick_dtype = orig
+@pytest.mark.parametrize("platform", ["cpu", "gpu", "rocm", "neuron"])
+def test_extend_program_per_platform(platform, monkeypatch):
+    """One extend program per platform: cpu -> XLA twin, gpu -> CUDA
+    kernel (built and registered on selection), anything else -> error,
+    never a silent fallback."""
+    from rabbitsalign_tpu.ops import extend_cuda, extend_portable
+    from rabbitsalign_tpu.ops.extend_device import extend_program
 
-    s32, te32, qe32, d32 = run(jnp.int32)
-    s16, te16, qe16, d16 = run(jnp.int16)
-    assert np.array_equal(s32, s16)
-    assert np.array_equal(te32, te16)
-    assert np.array_equal(qe32, qe16)
-    assert np.array_equal(d32, d16)
+    built = []
+    monkeypatch.setattr(extend_cuda, "register", lambda: built.append(1))
+    if platform == "cpu":
+        assert extend_program(platform) is extend_portable.extend_body
+        assert not built
+    elif platform == "gpu":
+        assert extend_program(platform) is extend_cuda.extend_body
+        assert built == [1]
+    else:
+        with pytest.raises(RuntimeError, match="no extend program"):
+            extend_program(platform)
+
+
+BUCKETS = [(152, 256, 1024), (256, 512, 512), (256, 1536, 512),
+           (512, 2048, 512)]  # native/engine.engine_buckets(150)
+
+
+def _bucket_pairs(Q, T, B):
+    """The parity pairs plus planted, N-laden and short pairs up to B."""
+    r = random.Random(Q * 7 + T)
+    pairs = [(q[:Q], t[:T]) for q, t in _extend_parity_pairs(Q, T)[:44]]
+    while len(pairs) < B:
+        i = len(pairs)
+        core = random_dna(r.randint(8, Q), seed=5000 + i)
+        if i % 9 == 0:
+            core = "".join(c if r.random() > 0.05 else "N" for c in core)
+        q = _mutate(core, r, r.randint(0, 5), r.randint(0, 2), r.randint(0, 2))[:Q]
+        t = (random_dna(r.randint(0, 60), seed=i) + core
+             + random_dna(r.randint(0, 60), seed=i + 1))[: r.randint(1, T)]
+        pairs.append((q, t))
+    return pairs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BUCKETS, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_extend_matches_xla_twin_gpu(gpu, shape):
+    """On the card, at every production bucket width: the CUDA kernel's
+    packed output equals the XLA twin's byte for byte (integer
+    arithmetic, so exact equality; TF32 and float rounding do not arise)
+    and decodes to the sw_jax + host-traceback golden, at default and at
+    tie-dense scoring, with N codes and lengths below the bucket shape."""
+    import jax
+
+    from rabbitsalign_tpu.ops.extend_device import (
+        extend_batch_packed,
+        extend_program,
+        pack_input,
+    )
+    from rabbitsalign_tpu.ops.extend_portable import extend_body as twin
+
+    Q, T, B = shape
+    pairs = _bucket_pairs(Q, T, B)
+    qc, tc, ql, tl = _pack(pairs, Q, T)
+    buf = jax.device_put(pack_input(
+        np.ascontiguousarray(qc.T), np.ascontiguousarray(tc.T), ql, tl))
+    cuda = extend_program(gpu.platform)
+    for sw in (PARAMS, SwParams(1, 1, 2, 1)):
+        got = np.asarray(extend_batch_packed(buf, Q, T, sw, cuda))
+        want = np.asarray(extend_batch_packed(buf, Q, T, sw, twin))
+        assert np.array_equal(got, want), np.argwhere(got != want)[:8]
+        _check_extend_parity(pairs, Q, T, got, sw)
 
 
 def test_portable_extend_matches_striped_ssw_default_scoring():
@@ -312,15 +344,16 @@ def test_portable_extend_matches_striped_ssw_default_scoring():
     gap_open > gap_extend (the pipeline gates device dispatch off at
     O == E). This pins the O > E equivalence empirically: adversarial
     pairs at default scoring, full coordinate + cigar agreement between
-    the portable extend twin and ssw_align."""
+    the XLA extend twin and ssw_align."""
     import re
 
     from rabbitsalign_tpu.ops.extend_device import (
+        extend_batch_packed,
+        extend_program,
         ops_to_cigars,
         pack_input,
         unpack_output,
     )
-    from rabbitsalign_tpu.ops.extend_portable import extend_batch_packed_portable
 
     def norm(cig):
         runs = re.findall(r"(\d+)([A-Z=])", cig)
@@ -376,7 +409,8 @@ def test_portable_extend_matches_striped_ssw_default_scoring():
         tl[b] = n
     buf = pack_input(np.ascontiguousarray(qc.T), np.ascontiguousarray(tc.T),
                      ql, tl)
-    out = np.asarray(extend_batch_packed_portable(buf, Q, T, PARAMS))
+    out = np.asarray(
+        extend_batch_packed(buf, Q, T, PARAMS, extend_program("cpu")))
     (op_runs, len_runs, n_runs, score, t_end, q_end, t_begin, q_begin,
      edits) = unpack_output(out)
     cigars = ops_to_cigars(op_runs, len_runs, n_runs, score)
